@@ -1,0 +1,103 @@
+"""The PyTorch port stands alone: nothing in ``multiraft_tpu_torch/`` or
+in ``chip_smoke.py`` imports JAX or the reference package, the whole
+package imports with JAX made unimportable, and an engine driver asked
+for no device in particular wants the card and refuses to run without
+one."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+# Small shapes: one intra-op thread, so that parallel test workers do not
+# oversubscribe the host's cores.
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "multiraft_tpu_torch"
+
+
+def _port_files():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    return files
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "multiraft_tpu")
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
+def test_no_jax_or_reference_import(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_forbidden_names_are_recognised():
+    assert _forbidden("jax.numpy") and _forbidden("multiraft_tpu.engine.core")
+    assert not _forbidden("multiraft_tpu_torch.engine.core")
+
+
+def test_whole_package_imports_with_jax_unimportable():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        "sys.modules['multiraft_tpu'] = None\n"
+        "import multiraft_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'multiraft_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "assert 'multiraft_tpu_torch.engine.kv' in names, names\n"
+        "print(len(names))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 12
+
+
+def test_driver_without_device_wants_the_card(monkeypatch):
+    from multiraft_tpu_torch.engine.core import EngineConfig
+    from multiraft_tpu_torch.engine.host import EngineDriver, resolve_device
+
+    if torch.cuda.is_available():
+        assert resolve_device(None) == torch.device("cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EngineDriver(EngineConfig(G=2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EngineDriver(EngineConfig(G=2), device="cuda")
+    d = EngineDriver(EngineConfig(G=2), device="cpu")
+    assert d.state.term.device.type == "cpu"
+
+
+def test_knobs_read_the_reference_names_with_its_defaults(monkeypatch):
+    from multiraft_tpu.utils import knobs as ref_knobs
+    from multiraft_tpu_torch.utils import knobs
+
+    for name, default in knobs.BOOL_KNOBS.items():
+        monkeypatch.delenv(name, raising=False)
+        assert knobs.knob_bool(name) == ref_knobs.knob_bool(name) == default
+        for raw in ("0", "off", "1", "yes", ""):
+            monkeypatch.setenv(name, raw)
+            assert knobs.knob_bool(name) == ref_knobs.knob_bool(name)
+    with pytest.raises(KeyError):
+        knobs.knob_bool("MRT_NOT_A_KNOB")
