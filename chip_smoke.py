@@ -11,11 +11,15 @@ each of which raises on any failed check (so the script exits non-zero
 and prints no result line):
 
 1. Card and build: the card's name and power limit from ``nvidia-smi``;
-   the hand-written kernels built from ``multiraft_tpu_torch/engine/csrc``.
+   the hand-written kernels built from ``multiraft_tpu_torch/engine/csrc``,
+   with what ``nvcc -Xptxas -v`` says of each (registers, shared memory,
+   stack frame, spills); a kernel with a stack frame or spills fails.
 2. Kernels: each kernel's output equals its plain PyTorch version on the
    card, exactly, on seeded inputs in the engine's ranges at the headline
    shape (G=10,000, P=3, L=192) and at G=100,000, P=5, L=192; the
-   kernel, its plain version and its memory/operation bound are timed.
+   kernel, its plain version and its memory/operation bound are timed,
+   beside the bytes the kernel's design moves and the launch floor: an
+   empty kernel launched by the same route with the same grid.
 3. Serving at full width (the main path, with the launch counters reset
    just before and read just after): an ``EngineDriver`` at the headline
    deployment elects one leader in every group, a ``BatchedKV`` answers
@@ -165,7 +169,7 @@ def _sector_bytes(index, itemsize: int = 4) -> int:
 
 
 def commit_bound(args, quorum: int) -> tuple:
-    """(bound_ms, bound_by, bytes, ops) of one quorum-commit call on these
+    """(bound_ms, bound_by, bytes) of one quorum-commit call on these
     inputs: is_leader and commit read and the output written in full,
     and of the other inputs only the 32-byte sectors holding the words
     this data needs: a leader's eff_match row, and where a leader's
@@ -190,7 +194,7 @@ def commit_bound(args, quorum: int) -> tuple:
         + _sector_bytes(ring_words)
     )
     ops = G * P * 4 + lead.numel() * (P * P + 12)
-    return _bound(nbytes, ops) + (nbytes, ops)
+    return _bound(nbytes, ops) + (nbytes,)
 
 
 def tally_bound(args) -> tuple:
@@ -206,7 +210,93 @@ def tally_bound(args) -> tuple:
     nbytes = (role.numel() * 4 + alive.numel() + G * P
               + _sector_bytes(votes_read, itemsize=1))
     ops = G * P * 4 + cand.numel() * (P + 2)
-    return _bound(nbytes, ops) + (nbytes, ops)
+    return _bound(nbytes, ops) + (nbytes,)
+
+
+def commit_design_bytes(args, quorum: int) -> int:
+    """Bytes the quorum-commit kernel moves on these inputs: every row's
+    staged planes (eff_match, commit, is_leader: 4P + 5 bytes), the
+    output, and for each leader whose quorum index q passes its commit
+    the 32-byte sectors of its term and base words and of the ring word
+    of q (read even where q is the snapshot base), and of base_term where
+    it is."""
+    import torch
+
+    eff_match, term, commit, base, base_term, log_term, is_leader = args
+    G, P, _ = eff_match.shape
+    L = log_term.shape[-1]
+    q = torch.sort(eff_match, dim=-1).values[..., P - quorum]
+    rows = torch.arange(G * P, device=q.device, dtype=torch.int64).reshape(G, P)
+    adv = is_leader & (q > commit)
+    ring_words = rows[adv] * L + torch.remainder(q[adv], L).long()
+    return (G * P * (4 * P + 5) + G * P * 4 + 2 * _sector_bytes(rows[adv])
+            + _sector_bytes(ring_words) + _sector_bytes(rows[adv & (q == base)]))
+
+
+def tally_design_bytes(args) -> int:
+    """Bytes the vote-tally kernel moves: every row's staged planes
+    (votes, role, alive: P + 5 bytes) and the output."""
+    votes = args[0]
+    G, P, _ = votes.shape
+    return G * P * (P + 5) + G * P
+
+
+def ptxas_facts(text: str) -> dict:
+    """Registers, stack frame and spill bytes of the two kernels, from
+    ``nvcc -Xptxas -v`` output ("Function properties for <name>" comes
+    before the lines that give them)."""
+    import re
+
+    facts, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = next((k for k in ("quorum_commit_kernel", "vote_tally_kernel")
+                         if k in m.group(1)), None)
+            continue
+        if name is None:
+            continue
+        f = facts.setdefault(name, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            f.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                     spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            f["registers"] = int(m.group(1))
+    return facts
+
+
+def phase_build(kernels) -> None:
+    t0 = time.perf_counter()
+    lib = kernels.build_library()
+    log(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s")
+    report = kernels.ptxas_report()
+    for line in report.splitlines():
+        if "ptxas" in line or "stack frame" in line:
+            log(f"ptxas: {line.strip()}")
+    facts = ptxas_facts(report)
+    for name in ("quorum_commit_kernel", "vote_tally_kernel"):
+        f = facts.get(name, {})
+        log(f"ptxas {name}: {json.dumps(f, sort_keys=True)}")
+        if "stack" not in f:
+            raise AssertionError(f"ptxas printed no stack frame line for {name}")
+        if f["stack"] or f["spill_stores"] or f["spill_loads"]:
+            raise AssertionError(f"{name} uses local memory: {f}")
+
+
+def launch_floor(kernels, G: int, P: int, kernel: str) -> dict:
+    """Times an empty kernel launched by the kernels' route with the grid,
+    block and shared memory of ``kernel``'s tile plan at G x P."""
+    import torch
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = kernels.tile_plan(G * P, P, kernel, sms=sms)
+    t = cuda_ms(lambda: kernels.empty_launch(plan, dev), 200)
+    return dict(grid=plan.grid, threads=plan.tile, smem_bytes=plan.smem_bytes,
+                **t)
 
 
 def _bound(nbytes: int, ops: int) -> tuple:
@@ -229,13 +319,15 @@ def phase_kernels(kernels) -> dict:
             ("quorum_commit",
              lambda: kernels.quorum_commit(*c_args, quorum),
              lambda: kernels.quorum_commit_plain(*c_args, quorum),
-             commit_bound(c_args, quorum)),
+             commit_bound(c_args, quorum),
+             commit_design_bytes(c_args, quorum)),
             ("vote_tally",
              lambda: kernels.vote_tally(*t_args, quorum),
              lambda: kernels.vote_tally_plain(*t_args, quorum),
-             tally_bound(t_args)),
+             tally_bound(t_args),
+             tally_design_bytes(t_args)),
         )
-        for name, kern, plain, bound in checks:
+        for name, kern, plain, bound, design_bytes in checks:
             got, want = kern(), plain()
             torch.cuda.synchronize()
             if got.dtype != want.dtype or not torch.equal(got, want):
@@ -243,13 +335,21 @@ def phase_kernels(kernels) -> dict:
             err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
             k_t = cuda_ms(kern, 200)
             p_t = cuda_ms(plain, 50)
-            bound_ms, bound_by, nbytes, ops = bound
+            floor = launch_floor(kernels, G, P, name)
+            bound_ms, bound_by, nbytes = bound
             results[(name, tag)] = dict(
                 max_abs_err=err, ms=k_t["cold"], plain_ms=p_t["cold"],
-                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops,
-                shape=[G, P, L], warm_ms=k_t["warm"], host_ms=k_t["host"],
+                bound_ms=bound_ms, bound_by=bound_by, shape=[G, P, L],
+                warm_ms=k_t["warm"], host_ms=k_t["host"],
                 plain_warm_ms=p_t["warm"], plain_host_ms=p_t["host"],
+                floor_ms=floor["cold"], floor_warm_ms=floor["warm"],
+                floor_host_ms=floor["host"],
             )
+            log(f"launch floor {name} {tag}: empty kernel, grid "
+                f"{floor['grid']} x {floor['threads']} threads, "
+                f"{floor['smem_bytes']} B shared memory: device cold "
+                f"{floor['cold'] * 1e3:.2f} us, warm {floor['warm'] * 1e3:.2f} us, "
+                f"host-paced {floor['host'] * 1e3:.2f} us")
             # How many rows the check decides non-trivially.
             moved = got != c_args[2] if name == "quorum_commit" else got
             log(f"kernel {name} {tag} G={G} P={P} L={L}: equal "
@@ -258,7 +358,8 @@ def phase_kernels(kernels) -> dict:
                 f"host-paced {k_t['host'] * 1e3:.2f} us; plain cold "
                 f"{p_t['cold'] * 1e3:.2f} us, warm {p_t['warm'] * 1e3:.2f} us, "
                 f"host-paced {p_t['host'] * 1e3:.2f} us; bound "
-                f"{bound_ms * 1e3:.3f} us by {bound_by} ({nbytes} B)")
+                f"{bound_ms * 1e3:.3f} us by {bound_by} ({nbytes} B); "
+                f"design_bytes {design_bytes} B")
     return results
 
 
@@ -423,10 +524,7 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
-    t0 = time.perf_counter()
-    lib = kernels.build_library()
-    log(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s")
-
+    phase_build(kernels)
     kres = phase_kernels(kernels)
 
     kernels.reset_launches()
@@ -457,9 +555,11 @@ def main() -> int:
             "shape": h["shape"],
             "warm_ms": h["warm_ms"],
             "host_ms": h["host_ms"],
+            "floor_ms": h["floor_ms"],
+            "floor_warm_ms": h["floor_warm_ms"],
             "config5": {k: c5[k] for k in (
                 "shape", "ms", "warm_ms", "host_ms", "plain_ms", "bound_ms",
-                "bound_by",
+                "bound_by", "floor_ms", "floor_warm_ms",
             )},
         })
     log(f"firehose: {json.dumps(fh)}")

@@ -39,10 +39,31 @@ def _commit_inputs(rng, G, P, L):
     )
 
 
-@pytest.mark.parametrize("P", [1, 2, 3, 4, 5, 7, 8, 9, 32])
-def test_kernels_equal_plain_versions(card, P):
+def _groups(card, P, edge):
+    """G for a row count (G*P) at an edge of the kernels' tiles of T rows:
+    the multiple of P nearest 1, T-1, T or T+1 on its side, 37 groups, or
+    enough rows that every persistent block of either kernel walks at
+    least three full tiles (a stage's barrier then completes twice, so a
+    wait on the wrong phase parity reads a stale tile)."""
+    T = kernels.TILE
+    if edge == "multi":
+        sms = torch.cuda.get_device_properties(card).multi_processor_count
+        grid = max(kernels.tile_plan(10**9, P, k, sms).grid
+                   for k in ("quorum_commit", "vote_tally"))
+        G = -(-(3 * grid * T + 1) // P)
+        for k in ("quorum_commit", "vote_tally"):
+            # Block b walks the full tiles b, b + grid, ...: at least 3.
+            assert G * P // T >= 3 * kernels.tile_plan(G * P, P, k, sms).grid
+        return G
+    return {"1": 1, "T-1": max(1, (T - 1) // P), "T": max(1, T // P),
+            "T+1": T // P + 1, "37": 37}[edge]
+
+
+@pytest.mark.parametrize("edge", ["1", "T-1", "T", "T+1", "37", "multi"])
+@pytest.mark.parametrize("P", [1, 2, 3, 4, 5, 7, 8, 9, 16, 31, 32])
+def test_kernels_equal_plain_versions(card, P, edge):
     rng = np.random.default_rng(P)
-    G, L, quorum = 37, 16, P // 2 + 1
+    G, L, quorum = _groups(card, P, edge), 16, P // 2 + 1
     args = [torch.from_numpy(a).to(card) for a in _commit_inputs(rng, G, P, L)]
     got = kernels.quorum_commit(*args, quorum)
     assert torch.equal(got, kernels.quorum_commit_plain(*args, quorum))
@@ -63,6 +84,26 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
     votes = torch.zeros((4, 3, 3), dtype=torch.bool, device=card)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.vote_tally(votes, role[:, :3].t().contiguous().t(), alive[:, :3], 2)
+
+
+def test_wrappers_refuse_unaligned_planes(card):
+    """A bulk copy needs 16-byte aligned planes: a view at a 4-byte (or
+    1-byte) offset raises before any launch."""
+    rng = np.random.default_rng(3)
+    G, P, L = 37, 3, 16
+    args = [torch.from_numpy(a).to(card) for a in _commit_inputs(rng, G, P, L)]
+    shifted = torch.empty(G * P + 1, dtype=torch.int32, device=card)[1:]
+    shifted = shifted.view(G, P).copy_(args[2])
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.quorum_commit(args[0], args[1], shifted, *args[3:], 2)
+    votes = torch.zeros((G, P, P), dtype=torch.bool, device=card)
+    role = torch.empty(G * P + 1, dtype=torch.int32, device=card)[1:].view(G, P)
+    alive = torch.ones((G, P), dtype=torch.bool, device=card)
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.vote_tally(votes, role, alive, 2)
+    alive = torch.ones(G * P + 1, dtype=torch.bool, device=card)[1:].view(G, P)
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.vote_tally(votes, role.clone(), alive, 2)
 
 
 def test_engine_on_the_card_equals_the_engine_on_the_cpu(card):

@@ -139,3 +139,50 @@ def test_kernel_sources_ship_with_the_package():
         assert 'extern "C"' in text
         assert "cudaGetLastError" in text
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
+
+
+# Row counts at the edges of a tile of T rows, and the two shapes the
+# engine runs: the headline G=10,000 x P=3 and G=100,000 x P=5.
+_T = kernels.TILE
+_PLAN_ROWS = (1, _T - 1, _T, _T + 1, 2 * _T + 1, 30_000, 500_000)
+
+
+@pytest.mark.parametrize("kernel", ["quorum_commit", "vote_tally"])
+@pytest.mark.parametrize("P", range(1, kernels.MAX_P + 1))
+def test_tile_plan_covers_every_row_once_in_aligned_tiles(kernel, P):
+    # The bytes a row of each plane the kernel stages by bulk copies.
+    staged = (4 * P, 4, 1) if kernel == "quorum_commit" else (P, 4, 1)
+    for rows in _PLAN_ROWS:
+        plan = kernels.tile_plan(rows, P, kernel)
+        tiles = -(-rows // plan.tile)
+        # Whole warps, one thread a row; the tiles cut the rows once.
+        assert plan.tile % 32 == 0
+        assert (tiles - 1) * plan.tile < rows <= tiles * plan.tile
+        # Every plane of a full tile is a multiple of 16 bytes, as a bulk
+        # copy needs; only the ragged last tile (rows % tile) is not.
+        assert all(plan.tile * b % 16 == 0 for b in staged)
+        # Two stages of the staged planes fit, and Hopper gives a block
+        # at most 232,448 bytes.
+        assert plan.smem_bytes >= 16 + 2 * plan.tile * sum(staged)
+        assert plan.smem_bytes <= 232_448
+        # Persistent: no more blocks than tiles, all resident at once.
+        assert 1 <= plan.grid <= tiles
+        per_sm = min(2048 // plan.tile, 233_472 // (plan.smem_bytes + 1024))
+        assert plan.grid <= per_sm * kernels.H100_SMS
+
+
+def test_tile_plan_grid_is_persistent_at_the_engine_shapes():
+    # The headline shape fits in one wave: one tile a block.
+    plan = kernels.tile_plan(30_000, 3, "quorum_commit")
+    assert plan.grid == 118 == -(-30_000 // 256)
+    # G=100,000 x P=5: 1,954 tiles over 8 resident blocks on each of 132
+    # SMs, two tiles a block at most.
+    plan = kernels.tile_plan(500_000, 5, "quorum_commit")
+    assert plan.grid == 8 * 132
+    assert -(-1954 // plan.grid) == 2
+    # At P=32 the commit stages take 68 KB, so three blocks fit an SM.
+    plan = kernels.tile_plan(10**6, 32, "quorum_commit")
+    assert plan.smem_bytes == 16 + (4 * 8 + 4 * 256) + 2 * 256 * (4 * 32 + 5)
+    assert plan.grid == 3 * 132
+    with pytest.raises(ValueError, match="P <= 32"):
+        kernels.tile_plan(100, 33, "vote_tally")
