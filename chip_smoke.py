@@ -29,6 +29,22 @@ and prints no result line):
 4. Whole engine, kernels against plain versions: 200 ticks from one seed
    with the kernels on and off, all planes equal; and a small engine on
    the card against the same engine on the CPU under message drops.
+5. The operations surface, each sub-phase with the launch counters reset
+   just before it and read just after:
+   (a) the headline deployment under a firehose backlog and 1% drops,
+   100 replicas crashed and 100 cut at tick 50, restarted and healed at
+   tick 100, an ``InvariantMonitor`` observing every 50 ticks; commits
+   must advance after the heal and every group end with one leader;
+   (b) at tick 200 a checkpoint, restored on the card and on the CPU;
+   all three drivers step 30 more faulted ticks and must be equal on
+   every plane, on ``commits_total`` and on ``content_fingerprint``;
+   (c) G=256 under 2/3 reorder, crashes, restarts, a slot reset and 10%
+   drops: the card equals the CPU on every plane, the delay queue and
+   the reorder RNG after 150 ticks;
+   (d) joint consensus on the plain path at G=10,000 x P=5: slot 3
+   replaces voter 2 in 8 groups; the kernel path refuses ``add_learner``;
+   (e) the tracer on run (a): one ``tick`` span per tick, whose commits
+   sum to the ``commits_total`` delta, and ``tick_wall_s`` percentiles.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -46,6 +62,8 @@ HEADLINE = dict(G=10_000, P=3, L=192, E=48, INGEST=48, HB_TICKS=9)
 CONFIG5 = dict(G=100_000, P=5, L=192)
 H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 H100_SCALAR_OPS_PER_S = 67e12  # H100 SXM non-tensor FP32/INT32 issue rate
+# Where phase 5 writes its checkpoint (inside the checkout, gitignored).
+SCRATCH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke")
 REPLACES = {
     "quorum_commit": "multiraft_tpu/engine/pallas_ops.py:37",
     "vote_tally": "multiraft_tpu/engine/pallas_ops.py:132",
@@ -510,6 +528,347 @@ def phase_whole_engine() -> None:
         f"plane ({on_card[2]} commits)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the operations surface (faults, checkpoint, reorder, membership,
+# tracer)
+# ---------------------------------------------------------------------------
+
+
+def _world(d):
+    from multiraft_tpu_torch import convert
+
+    return d.np_state(), convert.mailbox_to_numpy(d.inbox), d.commits_total
+
+
+def _same_delayed(a: list, b: list) -> bool:
+    import numpy as np
+
+    if len(a) != len(b):
+        return False
+    for (ra, pa, ea, fa), (rb, pb, eb, fb) in zip(a, b):
+        if (ra, pa, ea) != (rb, pb, eb) or list(fa) != list(fb):
+            return False
+        for k in fa:
+            x, y = np.asarray(fa[k]), np.asarray(fb[k])
+            if x.dtype != y.dtype or not np.array_equal(x, y):
+                return False
+    return True
+
+
+def _pick_replicas(rng, G: int, P: int, n: int):
+    """2n replicas (g, p) in 2n distinct groups: the first n, the rest."""
+    groups = rng.choice(G, 2 * n, replace=False).tolist()
+    picks = [(g, int(rng.integers(P))) for g in groups]
+    return picks[:n], picks[n:]
+
+
+def _full_ring_stalls(st: dict, cfg):
+    """Per group, whether its leader can neither ingest nor commit again:
+    the ring above its commit is full (no capacity for a new entry) and
+    holds no entry of the leader's own term, so the current-term commit
+    rule never fires, and compaction, which waits for the commit, never
+    frees a slot.  The reference engine stalls in the same state (a new
+    leader appends a no-op only while a config change is pending):
+    tests/test_torch_chaos.py::test_full_ring_stall_in_lockstep drives
+    both engines into it in lockstep and holds this predicate equal."""
+    import numpy as np
+
+    from multiraft_tpu_torch.engine.core import LEADER
+
+    rows = np.arange(cfg.G)
+    lead = (st["role"] == LEADER) & st["alive"]
+    ld = np.where(lead, st["term"], -1).argmax(axis=1)  # the max-term leader
+    term, commit = st["term"][rows, ld], st["commit"][rows, ld]
+    last = st["base"][rows, ld] + st["log_len"][rows, ld]
+    full = cfg.L - 2 - cfg.E - st["log_len"][rows, ld] < 1
+    idx = commit[:, None] + np.arange(1, cfg.L + 1)[None, :]
+    ring = st["log_term"][rows, ld]
+    own = (ring[rows[:, None], idx % cfg.L] == term[:, None]) & (idx <= last[:, None])
+    return lead[rows, ld] & full & (commit < last) & ~own.any(axis=1)
+
+
+def ops_faults(card: str) -> dict:
+    """5(a), 5(b) and 5(e): the headline deployment under a firehose
+    backlog and 1% drops, with an invariant monitor every 50 ticks and a
+    tracer attached; crashes and cuts at tick 50, restarts and heals at
+    tick 100; at tick 200 a checkpoint restored on the card and on the
+    CPU, and all three drivers stepped 30 more ticks under the same
+    faults and compared."""
+    import numpy as np
+
+    from multiraft_tpu_torch.engine.core import LEADER, EngineConfig
+    from multiraft_tpu_torch.engine.host import EngineDriver
+    from multiraft_tpu_torch.engine.invariants import InvariantMonitor
+    from multiraft_tpu_torch.engine.state_planes import content_fingerprint
+    from multiraft_tpu_torch.utils.trace import Tracer
+
+    G, P, block, n_faults = HEADLINE["G"], HEADLINE["P"], 50, 100
+    cfg = EngineConfig(use_kernels=True, **HEADLINE)
+    d = EngineDriver(cfg, seed=11, device="cuda")
+    if not d.run_until_quiet_leaders(500):
+        raise AssertionError("faults: not every group elected a leader")
+    d.tracer = Tracer()
+    mon = InvariantMonitor(d)
+    observe_s = []
+
+    def observe() -> None:
+        t0 = time.perf_counter()
+        mon.observe()
+        mon.prune_below_snapshot_floor()
+        observe_s.append(time.perf_counter() - t0)
+
+    observe()
+    d.start_bulk(np.full(G, HEADLINE["INGEST"] * 300, np.int64))
+    d.drop_prob = 0.01
+    crashed, cut = _pick_replicas(np.random.default_rng(5), G, P, n_faults)
+    tick0, c0 = d.tick, d.commits_total
+    ms_per_tick = []
+    for b in range(4):  # ticks 0-50-100-150-200 of the run
+        if b == 1:
+            for g, p in crashed:
+                d.set_alive(g, p, False)
+            for g, p in cut:
+                d.partition_replica(g, p, False)
+        if b == 2:
+            for g, p in crashed:
+                d.restart_replica(g, p)
+                mon.note_restart(g, p)
+            for g, p in cut:
+                d.partition_replica(g, p, True)
+            at_heal = d.np_state()["commit"].max(axis=1)
+        t0 = time.perf_counter()
+        d.step(block)
+        ms_per_tick.append((time.perf_counter() - t0) / block * 1e3)
+        observe()
+    st = d.np_state()
+    advanced = st["commit"].max(axis=1) > at_heal
+    stalled = _full_ring_stalls(st, cfg) & ~advanced
+    if not (advanced | stalled).all():
+        raise AssertionError(
+            f"faults: groups {np.nonzero(~(advanced | stalled))[0].tolist()[:10]} "
+            f"committed nothing after the heal")
+    log(f"faults: G={G} P={P}, {n_faults} replicas crashed and {n_faults} "
+        f"cut at tick 50, restarted and healed at tick 100, 1% drops, "
+        f"firehose backlog; ms/tick per 50-tick block "
+        f"{[round(x, 3) for x in ms_per_tick]}; monitor "
+        f"{len(observe_s)} observes, s/observe {[round(x, 3) for x in observe_s]}; "
+        f"commits advanced after the heal in {int(advanced.sum())} of {G} "
+        f"groups; {int(stalled.sum())} groups stalled with a full ring of "
+        f"older-term entries {np.nonzero(stalled)[0].tolist()[:10]} [{card}]")
+
+    # 5(b): checkpoint at tick 200, restored on the card and on the CPU.
+    os.makedirs(SCRATCH, exist_ok=True)
+    path = os.path.join(SCRATCH, "ops.ckpt")
+    t0 = time.perf_counter()
+    d.save(path)
+    save_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(path)
+    t0 = time.perf_counter()
+    on_card = EngineDriver.restore(path, device="cuda")
+    restore_card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = EngineDriver.restore(path, device="cpu")
+    restore_cpu_s = time.perf_counter() - t0
+    os.remove(path)
+    st = d.np_state()
+    followers = [(g, int(np.nonzero(st["role"][g] != LEADER)[0][0]))
+                 for g in range(0, G, max(1, G // 5))][:5]
+    drivers = (d, on_card, on_cpu)
+    step_s = [0.0] * len(drivers)  # each driver's 30 ticks
+    for b in range(3):  # ticks 200-230, the same faults on all three
+        for i, x in enumerate(drivers):
+            if b == 1:
+                for g, p in followers:
+                    x.set_alive(g, p, False)
+            if b == 2:
+                for g, p in followers:
+                    x.restart_replica(g, p)
+            t0 = time.perf_counter()
+            x.step(10)
+            step_s[i] += time.perf_counter() - t0
+    ref = _world(d)
+    for name, x in (("card", on_card), ("cpu", on_cpu)):
+        _assert_same(ref, _world(x), f"checkpoint restored on the {name}")
+        for a, b in ((d.state, x.state), (d.inbox, x.inbox)):
+            if content_fingerprint(a) != content_fingerprint(b):
+                raise AssertionError(f"checkpoint ({name}): fingerprints differ")
+    log(f"checkpoint: {nbytes} B saved in {save_s:.3f} s (fsync included) "
+        f"at engine tick {d.tick - 30} (tick 200 of the run); restored in {restore_card_s:.3f} s on the "
+        f"card and {restore_cpu_s:.3f} s on the CPU; after 30 more faulted "
+        f"ticks all three equal on every plane and commits_total "
+        f"({ref[2]}), fingerprint {content_fingerprint(d.state)}; the 30 "
+        f"ticks took {step_s[0]:.2f} s (uninterrupted), {step_s[1]:.2f} s "
+        f"(restored on the card), {step_s[2]:.2f} s (restored on the CPU) "
+        f"[{card}]")
+
+    # 5(e): the tracer's spans over the same run.
+    ticks = d.tick - tick0
+    spans = [e for e in d.tracer.events if e["ph"] == "X" and e["name"] == "tick"]
+    if len(spans) != ticks or [e["args"]["tick"] for e in spans] != list(
+            range(tick0 + 1, d.tick + 1)):
+        raise AssertionError(f"tracer: {len(spans)} tick spans for {ticks} ticks")
+    span_commits = sum(e["args"]["commits"] for e in spans)
+    if span_commits != d.commits_total - c0:
+        raise AssertionError(f"tracer: span commits {span_commits} != "
+                             f"{d.commits_total - c0}")
+    h = d.metrics.hist("tick_wall_s")
+    log(f"tracer: {len(spans)} tick spans for {ticks} fused ticks, span "
+        f"commits {span_commits} equal the commits_total delta; tick_wall_s "
+        f"p50 {h.percentile(0.5) * 1e3:.3f} ms p99 "
+        f"{h.percentile(0.99) * 1e3:.3f} ms ({h.count} samples) [{card}]")
+
+    lacking = int((d.leaders_per_group() != 1).sum())
+    if not d.run_until_quiet_leaders(300):
+        raise AssertionError("faults: not every group has one leader at the end")
+    log(f"faults: one leader in every group at tick {d.tick} "
+        f"({lacking} groups were between leaders at tick {d.tick - 5})")
+    return dict(ms_per_tick=ms_per_tick, observe_s=observe_s,
+                stalled=int(stalled.sum()),
+                ckpt_bytes=nbytes, save_s=save_s,
+                restore_card_s=restore_card_s, restore_cpu_s=restore_cpu_s,
+                step30_s=step_s,
+                tick_wall_p50_ms=h.percentile(0.5) * 1e3,
+                tick_wall_p99_ms=h.percentile(0.99) * 1e3)
+
+
+def ops_reorder(card: str) -> dict:
+    """5(c): labrpc's 2/3 long reordering with crashes, restarts, a slot
+    reset and 10% drops; the card against the CPU, tick for tick."""
+    import numpy as np
+
+    from multiraft_tpu_torch.engine.core import EngineConfig
+    from multiraft_tpu_torch.engine.host import EngineDriver
+
+    G, ticks = 256, 150
+    cfg = EngineConfig(use_kernels=True, **dict(HEADLINE, G=G))
+    ds = [EngineDriver(cfg, seed=17, device=dev) for dev in ("cuda", "cpu")]
+    crashed, _ = _pick_replicas(np.random.default_rng(3), G, cfg.P, 8)
+    held = 0
+    t0 = time.perf_counter()
+    for d in ds:
+        d.set_reorder(2.0 / 3.0, 2, 10)
+        d.drop_prob = 0.1
+        d.start_bulk(np.full(G, 8 * ticks, np.int64))
+    for t in range(ticks):
+        for d in ds:
+            if t == 60:
+                for g, p in crashed:
+                    d.set_alive(g, p, False)
+            if t == 90:
+                for g, p in crashed:
+                    d.restart_replica(g, p)
+            if t == 100:
+                d.reset_replica(*crashed[0])
+            d.step()
+        held = max(held, len(ds[0]._delayed))
+    wall = time.perf_counter() - t0
+    a, b = ds
+    _assert_same(_world(a), _world(b), "reorder: card vs CPU")
+    if not _same_delayed(a._delayed, b._delayed):
+        raise AssertionError("reorder: the delay queues differ")
+    if a._np_rng.bit_generator.state != b._np_rng.bit_generator.state:
+        raise AssertionError("reorder: the reorder RNG states differ")
+    if held == 0 or a.commits_total <= 0:
+        raise AssertionError(f"reorder: held {held}, commits {a.commits_total}")
+    log(f"reorder: G={G} P={cfg.P}, 2/3 reorder over 2-10 ticks, 10% drops, "
+        f"8 crashes and restarts, a slot reset: card equals CPU on every "
+        f"plane, the delay queue ({len(a._delayed)} held, at most {held}) and "
+        f"the RNG after {ticks} ticks ({a.commits_total} commits, {wall:.2f} s "
+        f"for both) [{card}]")
+    return dict(seconds=wall, held_max=held)
+
+
+def ops_membership(card: str) -> dict:
+    """5(d): joint consensus on the plain path at full width: in 8
+    groups, voter 2 is replaced by slot 3 (learner, catch-up, joint
+    change, exit); the kernel path refuses the same call."""
+    import numpy as np
+
+    from multiraft_tpu_torch.engine.core import EngineConfig
+    from multiraft_tpu_torch.engine.host import EngineDriver
+
+    G = HEADLINE["G"]
+    cfg = EngineConfig(use_kernels=False, membership=True, **dict(HEADLINE, P=5))
+    t_start = time.perf_counter()
+    d = EngineDriver(cfg, seed=19, device="cuda")
+    d.seed_config([0, 1, 2])
+    if not d.run_until_quiet_leaders(600):
+        raise AssertionError("membership: not every group elected a leader")
+    t_elected = time.perf_counter()
+    d.start_bulk(np.full(G, 20, np.int64))
+    d.step(10)
+    n_groups = 8
+    groups = list(range(0, G, G // n_groups))[:n_groups]
+    for g in groups:
+        d.add_learner(g, 3)
+    waiting = set(groups)
+    for _ in range(100):
+        d.step(5)
+        for g in sorted(waiting):
+            match, last = d.learner_match(g, 3)
+            if match >= last:
+                waiting.discard(g)
+        if not waiting:
+            break
+    if waiting:
+        raise AssertionError(f"membership: learners of {sorted(waiting)} "
+                             f"never caught up")
+    t_caught = time.perf_counter()
+    for g in groups:
+        d.begin_joint(g, [0, 1, 3])
+    waiting = set(groups)
+    for _ in range(200):
+        d.step(5)
+        for g in sorted(waiting):
+            if d.leader_of(g) is None:
+                continue
+            c = d.config_of(g)
+            if not c["joint"] and c["voters_old"] == c["voters_new"] == [0, 1, 3]:
+                waiting.discard(g)
+        if not waiting:
+            break
+    if waiting:
+        raise AssertionError(f"membership: groups {sorted(waiting)} never "
+                             f"reached [0, 1, 3]")
+    t_done = time.perf_counter()
+    kd = EngineDriver(EngineConfig(use_kernels=True, **dict(HEADLINE, G=8, P=5)),
+                      seed=0, device="cuda")
+    try:
+        kd.add_learner(0, 3)
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("membership: add_learner ran on the kernel path")
+    log(f"membership: G={G} P=5 plain path, slot 3 replaced voter 2 in "
+        f"{n_groups} groups by tick {d.tick}; {time.perf_counter() - t_start:.2f} s "
+        f"(election {t_elected - t_start:.2f} s, learner catch-up "
+        f"{t_caught - t_elected:.2f} s, joint change {t_done - t_caught:.2f} s); "
+        f"the kernel path refuses add_learner [{card}]")
+    return dict(seconds=t_done - t_start, election_s=t_elected - t_start,
+                catch_up_s=t_caught - t_elected, joint_s=t_done - t_caught)
+
+
+def phase_operations(card: str, kernels) -> dict:
+    """Phase 5: every sub-phase driven with the launch counts set to 0
+    just before it and read just after."""
+    out = {}
+    for name, fn, want in (("faults", ops_faults, "launched"),
+                           ("reorder", ops_reorder, "launched"),
+                           ("membership", ops_membership, "none")):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out[name] = fn(card)
+        out[name]["phase_s"] = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        out[name]["launches"] = launches
+        log(f"{name}: launches {launches}, {out[name]['phase_s']:.2f} s")
+        if want == "launched" and min(launches.values()) <= 0:
+            raise AssertionError(f"{name}: a kernel never launched: {launches}")
+        if want == "none" and max(launches.values()) > 0:
+            raise AssertionError(f"{name}: the plain path launched {launches}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -536,6 +895,7 @@ def main() -> int:
             raise AssertionError(f"kernel {name} never launched on the main path")
 
     phase_whole_engine()
+    ops = phase_operations(card, kernels)
 
     line = []
     for name in ("quorum_commit", "vote_tally"):
@@ -563,6 +923,7 @@ def main() -> int:
             )},
         })
     log(f"firehose: {json.dumps(fh)}")
+    log(f"operations: {json.dumps(ops)}")
     log(f"total: {time.perf_counter() - t_start:.1f} s [{card}]")
     log(json.dumps({"kernels": line}))
     print(json.dumps({

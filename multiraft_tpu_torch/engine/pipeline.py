@@ -82,7 +82,9 @@ class PendingTicks:
     place.
     """
 
-    __slots__ = ("n", "tick0", "rec", "accepts_dev")
+    __slots__ = (
+        "n", "tick0", "rec", "accepts_dev", "t_dispatch", "t_loop_cpu",
+    )
 
     def __init__(
         self,
@@ -90,11 +92,18 @@ class PendingTicks:
         tick0: int,
         rec: Dict[str, torch.Tensor],
         accepts_dev: torch.Tensor,
+        t_dispatch: float,
     ) -> None:
         self.n = n
         self.tick0 = tick0
         self.rec = rec
         self.accepts_dev = accepts_dev
+        # Host wall clock (perf_counter) when the batch was dispatched:
+        # the tracer spreads the batch's wall time over its ticks.
+        self.t_dispatch = t_dispatch
+        # Loop-side CPU the dispatch burned (the serving loop's share
+        # of this pump; completion adds its own) — set by the caller.
+        self.t_loop_cpu = 0.0
 
     def fetch(self) -> Dict[str, np.ndarray]:
         """Block until the batch's stacked metrics are host-resident."""

@@ -1,27 +1,262 @@
-"""Named counters for the PyTorch engine driver.
+"""Metrics registry and gated debug printf for the PyTorch port.
 
-The subset of the reference registry (``multiraft_tpu/utils/metrics.py``)
-that :class:`~multiraft_tpu_torch.engine.host.EngineDriver` touches: the
-driver counts ``ticks`` here.  Latency histograms and sample reservoirs
-arrive with the tracer spans in a later slice.
+A copy of ``multiraft_tpu/utils/metrics.py`` (the port imports nothing
+of the reference package): named counters, gauges, log-bucket latency
+histograms (:class:`Hist`) and seeded sample reservoirs.
+:class:`~multiraft_tpu_torch.engine.host.EngineDriver` counts ``ticks``
+here, and with a tracer attached observes each tick's wall time as
+``tick_wall_s``.
+
+``trace`` is the gated debug printf, switched on by ``MULTIRAFT_DEBUG``
+as in the reference.
 """
 
 from __future__ import annotations
 
+import math
+import os
+import random
+import sys
+import time
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, List, Optional
 
-__all__ = ["Metrics"]
+__all__ = ["Hist", "Metrics", "trace", "DEBUG"]
+
+
+class Hist:
+    """Fixed log-bucket streaming histogram for latency metrics.
+
+    Algorithm-R reservoirs estimate the *whole-stream* distribution, which
+    is the wrong tool for latency under sustained load: once the reservoir
+    fills, each new sample lands with probability ``cap/seen`` — after a
+    million observations a queueing-collapse tail is a 0.4% lottery, so
+    the reported p99 lags reality by minutes.  A fixed log-bucket
+    histogram has none of that: every sample always lands in its bucket,
+    memory is a constant 128 ints, two histograms merge exactly by
+    elementwise addition (the property the fleet scraper and the windowed
+    diff both rely on), and percentile error is bounded by the bucket
+    width (±~9% with 4 sub-buckets per octave).
+
+    Buckets are geometric: bucket ``i`` covers
+    ``[MIN * 2**(i/SUB), MIN * 2**((i+1)/SUB))`` with ``MIN`` = 1 µs and
+    ``SUB`` = 4 sub-buckets per octave; 128 buckets span 1 µs → ~4300 s.
+    Values below 1 µs clamp into bucket 0, values above the top clamp
+    into the last bucket; exact ``vmin``/``vmax`` are tracked so the
+    extremes stay honest.
+    """
+
+    SUB = 4
+    NBUCKETS = 128
+    MIN = 1e-6
+
+    __slots__ = ("counts", "count", "total", "vmin", "vmax")
+
+    def __init__(self) -> None:
+        self.counts: List[int] = [0] * Hist.NBUCKETS
+        self.count = 0
+        self.total = 0.0
+        self.vmin = math.inf
+        self.vmax = -math.inf
+
+    @staticmethod
+    def bucket_index(value: float) -> int:
+        if value <= Hist.MIN:
+            return 0
+        i = int(math.log2(value / Hist.MIN) * Hist.SUB)
+        return min(max(i, 0), Hist.NBUCKETS - 1)
+
+    @staticmethod
+    def bucket_mid(i: int) -> float:
+        """Geometric midpoint of bucket ``i`` (the percentile estimate)."""
+        return float(Hist.MIN * 2.0 ** ((i + 0.5) / Hist.SUB))
+
+    def observe(self, value: float) -> None:
+        self.counts[Hist.bucket_index(value)] += 1
+        self.count += 1
+        self.total += value
+        if value < self.vmin:
+            self.vmin = value
+        if value > self.vmax:
+            self.vmax = value
+
+    def percentile(self, q: float) -> Optional[float]:
+        if self.count == 0:
+            return None
+        rank = min(int(q * self.count), self.count - 1)
+        seen = 0
+        for i, c in enumerate(self.counts):
+            seen += c
+            if seen > rank:
+                # Clamp to the exact extremes so q=0/q=1 never report a
+                # bucket midpoint outside the observed range.
+                return min(max(Hist.bucket_mid(i), self.vmin), self.vmax)
+        return self.vmax
+
+    def merge(self, other: "Hist") -> None:
+        """Exact merge: elementwise bucket addition."""
+        for i, c in enumerate(other.counts):
+            if c:
+                self.counts[i] += c
+        self.count += other.count
+        self.total += other.total
+        self.vmin = min(self.vmin, other.vmin)
+        self.vmax = max(self.vmax, other.vmax)
+
+    def dump(self) -> Dict[str, object]:
+        """Compact wire form: sparse non-zero buckets + exact extremes.
+
+        Cumulative (never reset by a scrape), so two dumps taken at
+        different times diff into the window between them (``sub``).
+        """
+        return {
+            "n": self.count,
+            "sum": self.total,
+            "min": self.vmin if self.count else None,
+            "max": self.vmax if self.count else None,
+            "b": {i: c for i, c in enumerate(self.counts) if c},
+        }
+
+    @classmethod
+    def from_dump(cls, d: Dict[str, object]) -> "Hist":
+        h = cls()
+        h.count = int(d["n"])  # type: ignore[arg-type]
+        h.total = float(d["sum"])  # type: ignore[arg-type]
+        h.vmin = float(d["min"]) if d.get("min") is not None else math.inf  # type: ignore[arg-type]
+        h.vmax = float(d["max"]) if d.get("max") is not None else -math.inf  # type: ignore[arg-type]
+        buckets = d.get("b") or {}
+        if isinstance(buckets, dict):
+            for i, c in buckets.items():
+                h.counts[int(i)] = int(c)
+        return h
+
+    @classmethod
+    def sub(cls, now: "Hist", then: "Hist") -> "Hist":
+        """Windowed view: counts accumulated strictly after ``then``.
+
+        Both arguments must be cumulative dumps of the *same* histogram;
+        the result's extremes are the cumulative ones (bucket counts are
+        exactly diffable, min/max are not).
+        """
+        h = cls()
+        for i in range(cls.NBUCKETS):
+            h.counts[i] = max(now.counts[i] - then.counts[i], 0)
+        h.count = max(now.count - then.count, 0)
+        h.total = now.total - then.total
+        h.vmin = now.vmin
+        h.vmax = now.vmax
+        return h
+
+DEBUG = os.environ.get("MULTIRAFT_DEBUG", "") not in ("", "0")
+
+
+def trace(fmt: str, *args: object) -> None:
+    """Gated debug printf (reference: DPrintf, raft/utility.go:55-72)."""
+    if DEBUG:
+        print(fmt % args if args else fmt, file=sys.stderr)
 
 
 class Metrics:
-    """Named integer counters."""
+    """Named counters, gauges, and bounded sample reservoirs.
 
-    def __init__(self) -> None:
+    Sample lists are capped at ``max_samples`` per name (long nemesis and
+    bench runs observe millions of latencies).  Below the cap every value
+    is kept and percentiles are exact; above it the list becomes a uniform
+    reservoir (Vitter's algorithm R): each new value replaces a random
+    slot with probability ``cap/seen``, so percentiles are unbiased
+    estimates over the whole stream rather than a recency window.  The
+    RNG is seeded per-registry, keeping runs reproducible.
+    """
+
+    def __init__(self, max_samples: int = 4096) -> None:
         self.counters: Dict[str, int] = defaultdict(int)
+        self.gauges: Dict[str, float] = {}
+        self.samples: Dict[str, List[float]] = defaultdict(list)
+        self.hists: Dict[str, Hist] = {}
+        self.max_samples = max_samples
+        self.seen: Dict[str, int] = defaultdict(int)
+        self._rng = random.Random(0x0B5)
 
     def inc(self, name: str, by: int = 1) -> None:
         self.counters[name] += by
 
-    def snapshot(self) -> Dict[str, int]:
-        return dict(self.counters)
+    def set(self, name: str, value: float) -> None:
+        self.gauges[name] = value
+
+    def observe(self, name: str, value: float) -> None:
+        # Latency metrics (the repo-wide ``*_s`` seconds suffix) go to
+        # log-bucket histograms: every sample always lands, so a load
+        # spike moves the p99 immediately instead of winning a
+        # cap/seen reservoir lottery.  Everything else (batch sizes,
+        # frames-per-flush, ...) keeps the whole-stream reservoir.
+        if name.endswith("_s"):
+            h = self.hists.get(name)
+            if h is None:
+                h = self.hists[name] = Hist()
+            h.observe(value)
+            return
+        self.seen[name] += 1
+        xs = self.samples[name]
+        if len(xs) < self.max_samples:
+            xs.append(value)
+            return
+        j = self._rng.randrange(self.seen[name])
+        if j < self.max_samples:
+            xs[j] = value
+
+    def hist(self, name: str) -> Optional[Hist]:
+        return self.hists.get(name)
+
+    def percentile(self, name: str, q: float) -> Optional[float]:
+        h = self.hists.get(name)
+        if h is not None:
+            return h.percentile(q)
+        xs = sorted(self.samples.get(name, []))
+        if not xs:
+            return None
+        i = min(int(q * len(xs)), len(xs) - 1)
+        return xs[i]
+
+    def snapshot(self) -> Dict[str, float]:
+        out: Dict[str, float] = dict(self.counters)
+        out.update(self.gauges)
+        for name in self.samples:
+            p50 = self.percentile(name, 0.50)
+            p99 = self.percentile(name, 0.99)
+            if p50 is not None:
+                out[name + "_p50"] = p50
+                out[name + "_p99"] = p99
+        for hname, h in self.hists.items():
+            hp50 = h.percentile(0.50)
+            hp99 = h.percentile(0.99)
+            if hp50 is not None and hp99 is not None:
+                out[hname + "_p50"] = hp50
+                out[hname + "_p99"] = hp99
+                out[hname + "_count"] = float(h.count)
+        return out
+
+    def hist_dumps(self) -> Dict[str, Dict[str, object]]:
+        """All histograms in mergeable wire form (for ``Obs.hist``)."""
+        return {name: h.dump() for name, h in self.hists.items()}
+
+    def reset(self) -> None:
+        self.counters.clear()
+        self.gauges.clear()
+        self.samples.clear()
+        self.hists.clear()
+        self.seen.clear()
+
+    class _Timer:
+        def __init__(self, m: "Metrics", name: str) -> None:
+            self.m, self.name = m, name
+
+        def __enter__(self) -> "Metrics._Timer":
+            self.t0 = time.perf_counter()
+            return self
+
+        def __exit__(self, *exc: object) -> None:
+            self.m.observe(self.name, time.perf_counter() - self.t0)
+
+    def timer(self, name: str) -> "_Timer":
+        return Metrics._Timer(self, name)
+

@@ -14,6 +14,7 @@ from multiraft_tpu_torch import convert
 from multiraft_tpu_torch.engine import kernels
 from multiraft_tpu_torch.engine.core import EngineConfig
 from multiraft_tpu_torch.engine.host import EngineDriver
+from torch_parity import same_delayed
 
 pytestmark = pytest.mark.cuda
 
@@ -119,3 +120,62 @@ def test_engine_on_the_card_equals_the_engine_on_the_cpu(card):
     for a, b in zip(*worlds):
         for k in a:
             assert np.array_equal(a[k], b[k]), k
+
+
+def _faulted_pair(card, seed=8):
+    """The same G=64 driver on the card and on the CPU, under reorder,
+    drops and a firehose backlog."""
+    cfg = EngineConfig(G=64, P=3, L=32, E=4, INGEST=4, use_kernels=True)
+    ds = [EngineDriver(cfg, seed=seed, device=dev) for dev in (card, "cpu")]
+    for d in ds:
+        d.set_reorder(2.0 / 3.0, 2, 10)
+        d.drop_prob = 0.1
+        d.start_bulk(np.full(cfg.G, 300, np.int64))
+    return ds
+
+
+def _assert_same_drivers(a, b):
+    for x, y in ((a.np_state(), b.np_state()),
+                 (convert.mailbox_to_numpy(a.inbox), convert.mailbox_to_numpy(b.inbox))):
+        for k in x:
+            assert x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k]), k
+    assert a.commits_total == b.commits_total
+    assert a._np_rng.bit_generator.state == b._np_rng.bit_generator.state
+    assert same_delayed(a._delayed, b._delayed)
+
+
+def test_restart_reset_and_reorder_on_the_card_equal_the_cpu(card):
+    ds = _faulted_pair(card)
+    for t in range(120):
+        for d in ds:
+            if t == 40:
+                for g in range(0, 64, 8):
+                    d.set_alive(g, g % 3, False)
+            if t == 70:
+                for g in range(0, 64, 8):
+                    d.restart_replica(g, g % 3)
+            if t == 80:
+                d.reset_replica(5, 1)
+                d.partition_replica(9, 2, False)
+            d.step()
+    assert ds[0]._delayed or ds[0].commits_total > 0
+    _assert_same_drivers(*ds)
+
+
+def test_checkpoints_cross_between_the_card_and_the_cpu(card, tmp_path):
+    on_card, on_cpu = _faulted_pair(card, seed=9)
+    for d in (on_card, on_cpu):
+        d.step(50)
+    paths = [str(tmp_path / "card.ckpt"), str(tmp_path / "cpu.ckpt")]
+    on_card.save(paths[0])
+    on_cpu.save(paths[1])
+    card_to_cpu = EngineDriver.restore(paths[0], device="cpu")
+    cpu_to_card = EngineDriver.restore(paths[1], device=card)
+    assert card_to_cpu.state.term.device.type == "cpu"
+    assert cpu_to_card.state.term.device.type == "cuda"
+    drivers = (on_card, on_cpu, card_to_cpu, cpu_to_card)
+    for d in drivers:
+        d.restart_replica(3, 0)
+        d.step(40)
+    for d in drivers[1:]:
+        _assert_same_drivers(on_card, d)
