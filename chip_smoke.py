@@ -45,6 +45,27 @@ and prints no result line):
    replaces voter 2 in 8 groups; the kernel path refuses ``add_learner``;
    (e) the tracer on run (a): one ``tick`` span per tick, whose commits
    sum to the ``commits_total`` delta, and ``tick_wall_s`` percentiles.
+6. The sharded engine, each sub-phase with the launch counters reset
+   just before it and read just after:
+   (a) ``BatchedShardKV`` at the headline deployment, kernels on: engine
+   group 0 is the config RSM and gids 1..9,999 join in one admin op; a
+   firehose of 8 frames of 4,096 Put rows (some for gids not hosted,
+   which resolve WRONG_GROUP) through ``submit_frame``, routed on the
+   card by ``route_keys``; the shard owners leave under that traffic and
+   a shard moves to a named gid while the others keep serving; every
+   shard ends SERVING at exactly one replica with no copy left at its
+   old owners, and every acknowledged write reads back through
+   ``get_fast`` and a logged Get; ``route_keys`` on the card equals host
+   routing for 1M hashes, negative ones included;
+   (b) two split drivers on one card (G=64, host-paced compaction,
+   owners ``[0, 1, 1]``), slabs exchanged every pump: a ``SplitKV`` pair
+   elects and commits; a ``SplitShardKV`` pair joins gid 1, takes writes,
+   joins gid 2, and driver 0 is killed mid-migration; driver 1 finishes
+   the migration alone and serves every acknowledged write;
+   (c) a seeded sharded script (join, writes, leave, move) at G=64 on
+   the card and on the CPU, equal at every admin point; then the
+   ``*_gid`` membership facades replace a dead voter at G=64 x P=5 on
+   the plain path, each leg twice.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -869,6 +890,682 @@ def phase_operations(card: str, kernels) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the sharded engine (BatchedShardKV, SplitKV, SplitShardKV)
+# ---------------------------------------------------------------------------
+
+
+class _Pumps:
+    """Wall time of every pump of a sharded service (ending in the
+    pump's own readbacks) and of its orchestration sweeps."""
+
+    def __init__(self, skv) -> None:
+        self.pump_s, self.sweep_s = [], []
+        inner_pump, inner_sweep = skv.pump, skv._orchestrate
+
+        def pump(*a, **k):
+            t0 = time.perf_counter()
+            inner_pump(*a, **k)
+            self.pump_s.append(time.perf_counter() - t0)
+
+        def sweep():
+            t0 = time.perf_counter()
+            inner_sweep()
+            self.sweep_s.append(time.perf_counter() - t0)
+
+        skv.pump, skv._orchestrate = pump, sweep
+
+    def summary(self) -> dict:
+        import numpy as np
+
+        out = {}
+        for name, xs in (("pump_ms", self.pump_s), ("sweep_ms", self.sweep_s)):
+            a = np.asarray(xs) * 1e3
+            out[name] = dict(n=len(a), p50=float(np.percentile(a, 50)),
+                             p90=float(np.percentile(a, 90)), max=float(a.max()))
+        return out
+
+
+def _settled(skv) -> bool:
+    """Every hosted replica at the latest config with every slot SERVING."""
+    from multiraft_tpu_torch.services.shardkv import SERVING
+
+    n = skv.configs[-1].num
+    return all(r.cur.num == n and all(sl.state == SERVING for sl in r.shards.values())
+               for r in skv.reps.values())
+
+
+def _pump_until(skv, pred, max_pumps: int, n: int = 5, what: str = "") -> None:
+    for _ in range(max_pumps):
+        if pred():
+            return
+        skv.pump(n)
+    if not pred():
+        raise AssertionError(f"sharded: {what} not reached in {max_pumps} pumps of {n}")
+
+
+def _frame_blob(rows) -> bytes:
+    """A firehose request from (op, gid, client, command, key, value) rows."""
+    import numpy as np
+
+    from multiraft_tpu_torch.engine.firehose import pack_request
+
+    ops, gids, clients, cmds, keys, vals = zip(*rows)
+    return pack_request(np.array(ops, np.uint8), np.array(gids, np.uint32),
+                        np.array(clients, np.uint64), np.array(cmds, np.uint64),
+                        [k.encode() for k in keys], [v.encode() for v in vals])
+
+
+def sharded_headline(card: str) -> dict:
+    """6(a): BatchedShardKV at the headline widths, kernels on: every gid
+    joined in one admin op, a firehose of Put rows through submit_frame
+    (rows for unhosted gids resolve WRONG_GROUP), the shard owners leave
+    under that traffic, one shard moves to a named gid; every shard ends
+    SERVING at exactly one replica, old owners hold no copy, and every
+    acknowledged write reads back through get_fast and a logged Get."""
+    import numpy as np
+    import torch
+
+    from multiraft_tpu_torch.engine.core import EngineConfig
+    from multiraft_tpu_torch.engine.firehose import FH_OK, FH_WRONG_GROUP
+    from multiraft_tpu_torch.engine.host import EngineDriver
+    from multiraft_tpu_torch.engine.shardkv import OK, BatchedShardKV, route_keys
+    from multiraft_tpu_torch.services.shardctrler import NSHARDS
+    from multiraft_tpu_torch.services.shardkv import key2shard
+
+    G = HEADLINE["G"]
+    d = EngineDriver(EngineConfig(use_kernels=True, **HEADLINE), seed=23, device="cuda")
+    t0 = time.perf_counter()
+    if not d.run_until_quiet_leaders(500):
+        raise AssertionError("sharded: not every group elected a leader")
+    elect_s = time.perf_counter() - t0
+    skv = BatchedShardKV(d)
+    stats = _Pumps(skv)
+    admin = {}
+
+    tick0, t0 = d.tick, time.perf_counter()
+    skv.admin_sync("join", list(range(1, G)))
+    admin["join"] = dict(commit_ticks=d.tick - tick0, commit_s=time.perf_counter() - t0)
+    _pump_until(skv, lambda: _settled(skv), 400, what="join settled")
+    admin["join"].update(serving_ticks=d.tick - tick0, serving_s=time.perf_counter() - t0)
+    if len(skv.configs[-1].groups) != G - 1:
+        raise AssertionError("sharded: the join did not name every gid")
+    owners1 = sorted(set(skv.configs[-1].shards))
+
+    # The firehose: distinct keys whose first bytes cover every shard,
+    # one session per row (a resent row dedups against itself only).
+    n_frames, frame_rows, stray = 8, 4096, 64
+    n_keys = n_frames * (frame_rows - stray)
+    keys = [f"{chr(33 + i % 94)}{i}" for i in range(n_keys)]
+    if len({key2shard(k) for k in keys}) != NSHARDS:
+        raise AssertionError("sharded: the keys miss a shard")
+    first = torch.tensor([ord(k[0]) for k in keys], dtype=torch.int32)
+    model, pending, frames = {}, [], []
+    frame_ms = []
+
+    def send(idx, extra):
+        table = skv.shard_table()
+        h = first[torch.from_numpy(idx)]
+        routed = route_keys(table, h).cpu().numpy()
+        host = np.array(skv.configs[-1].shards)[h.numpy() % NSHARDS]
+        if not np.array_equal(routed, host):
+            raise AssertionError("sharded: device routing != host routing")
+        rows = [(1, int(g), 1 + i, 1, keys[i], f"v{i}") for i, g in zip(idx.tolist(), routed)]
+        rows += extra
+        blob = _frame_blob(rows)
+        t0 = time.perf_counter()
+        f = skv.submit_frame(blob)
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        if not (f.err[len(idx):] == FH_WRONG_GROUP).all():
+            raise AssertionError("sharded: rows for unhosted gids did not resolve WRONG_GROUP")
+        frames.append((idx, f))
+
+    def drain():
+        _pump_until(skv, lambda: all(f.done for _, f in frames), 400, n=3,
+                    what="firehose frames resolved")
+        for idx, f in frames:
+            err = f.err[:len(idx)]
+            for i in idx[err == FH_OK].tolist():
+                model[keys[i]] = f"v{i}"
+            pending.extend(idx[err != FH_OK].tolist())
+        frames.clear()
+
+    def ctrl(make):
+        """Poll a ctrler op to its commit, retrying a lost slot under the
+        same dedup id (admin_sync's loop, one poll per call)."""
+        t = make(None)
+
+        def committed() -> bool:
+            nonlocal t
+            if t.done and t.failed:
+                t = make(t.command_id)
+            return t.done and not t.failed
+
+        return committed
+
+    c0, t_fh = d.commits_total, time.perf_counter()
+    order = np.arange(n_keys)
+    per = frame_rows - stray
+    strays = lambda j: [(1, G + 1000 + s, 10**6 + j * stray + s, 1, f"~{j}.{s}", "x")
+                        for s in range(stray)]
+    leave_tick0 = None
+    for j in range(n_frames):
+        send(order[j * per:(j + 1) * per], strays(j))
+        skv.pump(3)
+        if j == n_frames // 2 - 1:
+            # The owners leave under the firehose: every shard migrates.
+            leave_tick0, leave_t0 = d.tick, time.perf_counter()
+            left = ctrl(lambda cid: skv.leave(owners1, command_id=cid))
+    _pump_until(skv, left, 200, what="leave commit")
+    drain()
+    rounds = 0
+    while pending:
+        rounds += 1
+        if rounds > 80:
+            raise AssertionError(f"sharded: {len(pending)} rows never acknowledged")
+        idx = np.array(pending[:frame_rows])
+        del pending[:frame_rows]
+        send(idx, [])
+        skv.pump(3)
+        drain()
+    fh_s = time.perf_counter() - t_fh
+    fh_commits = d.commits_total - c0
+    _pump_until(skv, lambda: _settled(skv), 400, what="leave settled")
+    admin["leave"] = dict(serving_ticks=d.tick - leave_tick0,
+                          serving_s=time.perf_counter() - leave_t0)
+    owners2 = sorted(set(skv.configs[-1].shards))
+    if set(owners2) & set(owners1):
+        raise AssertionError("sharded: a leaving gid still owns a shard")
+
+    # Move one shard to a named gid; the others keep serving meanwhile.
+    named, moved = G // 2, 0
+    probe = {key2shard(k): k for k in model}
+    tick0, t0 = d.tick, time.perf_counter()
+    committed = ctrl(lambda cid: skv.move(moved, named, command_id=cid))
+    unaffected_reads = 0
+    while not (committed() and _settled(skv)):
+        skv.pump(5)
+        if d.tick - tick0 > 2000:
+            raise AssertionError("sharded: the move never settled")
+        for s, k in probe.items():
+            if s == moved:
+                continue
+            t = skv.get_fast(k)
+            if t.err != OK or t.value != model[k]:
+                raise AssertionError(f"sharded: shard {s} stopped serving during the move")
+            unaffected_reads += 1
+    admin["move"] = dict(serving_ticks=d.tick - tick0, serving_s=time.perf_counter() - t0)
+
+    latest = skv.configs[-1]
+    if latest.shards[moved] != named:
+        raise AssertionError("sharded: the moved shard is not at the named gid")
+    if skv.shard_table().cpu().tolist() != latest.shards:
+        raise AssertionError("sharded: shard_table() != configs[-1].shards")
+    former = {s: {c.shards[s] for c in skv.configs[1:-1]} - {latest.shards[s]}
+              for s in range(NSHARDS)}
+    for s in range(NSHARDS):
+        serving = [g for g, r in skv.reps.items() if r.can_serve(s)]
+        if serving != [latest.shards[s]]:
+            raise AssertionError(f"sharded: shard {s} serves at {serving[:5]}")
+        for g in former[s]:
+            if skv.reps[g].shards[s].data:
+                raise AssertionError(f"sharded: gid {g} kept shard {s} (Challenge 1)")
+
+    # Read back every acknowledged write: fast reads, then logged Gets.
+    for k, v in model.items():
+        t = skv.get_fast(k)
+        if t.err != OK or t.value != v:
+            raise AssertionError(f"sharded: get_fast({k!r}) = {t.err} {t.value!r}")
+    gets = {k: skv.submit(latest.shards[key2shard(k)], "Get", k) for k in model}
+    t0, rounds = time.perf_counter(), 0
+    while True:
+        skv.pump(5)
+        rounds += 1
+        redo = [k for k, t in gets.items() if t.done and t.failed]
+        for k in redo:
+            gets[k] = skv.submit(latest.shards[key2shard(k)], "Get", k)
+        if all(t.done for t in gets.values()):
+            break
+        if rounds > 400:
+            raise AssertionError("sharded: logged Gets still pending after 400 pumps")
+    for k, t in gets.items():
+        if t.err != OK or t.value != model[k]:
+            raise AssertionError(f"sharded: logged Get({k!r}) = {t.err} {t.value!r}")
+    gets_s = time.perf_counter() - t0
+
+    # route_keys on the card against host routing, negative hashes too.
+    rng = np.random.default_rng(6)
+    h = rng.integers(-2**31, 2**31, 1_000_000, dtype=np.int64).astype(np.int32)
+    dev = route_keys(skv.shard_table(), torch.from_numpy(h).cuda()).cpu().numpy()
+    if not np.array_equal(dev, np.array(latest.shards, np.int32)[np.mod(h.astype(np.int64), NSHARDS)]):
+        raise AssertionError("sharded: route_keys on the card != host routing")
+    timing = stats.summary()
+    out = dict(G=G, elect_s=elect_s, admin=admin, keys_acked=len(model),
+               frames=len(frame_ms), submit_frame_ms=dict(
+                   p50=float(np.percentile(frame_ms, 50)), max=float(max(frame_ms))),
+               firehose_s=fh_s, firehose_commits=fh_commits,
+               commits_per_s=fh_commits / fh_s, retry_rounds=rounds,
+               unaffected_reads=unaffected_reads, logged_gets_s=gets_s,
+               ticks=d.tick, **timing)
+    log(f"sharded: G={G} P={HEADLINE['P']} L={HEADLINE['L']} kernels on; join of "
+        f"{G - 1} gids {admin['join']}; {len(model)} acked Put rows in "
+        f"{len(frame_ms)} frames (8 of 4,096 rows with {stray} for unhosted gids "
+        f"each, then resends), submit_frame p50 {out['submit_frame_ms']['p50']:.2f} ms "
+        f"max {out['submit_frame_ms']['max']:.2f} ms, {fh_commits} commits in "
+        f"{fh_s:.2f} s ({out['commits_per_s']:.0f} commits/s); leave of the owners "
+        f"{owners1} {admin['leave']}; move of shard {moved} to gid {named} "
+        f"{admin['move']} with {unaffected_reads} fast reads of unaffected shards "
+        f"all OK; every key read back by get_fast and by a logged Get "
+        f"({gets_s:.2f} s); pump ms {timing['pump_ms']}; sweep ms "
+        f"{timing['sweep_ms']} [{card}]")
+    return out
+
+
+class _SplitRig:
+    """Two split 'processes' in one interpreter (the split servers'
+    deployment without the sockets): every pump extracts each live
+    side's slabs and injects them into the other live side.  A killed
+    side stops pumping and its slabs are dropped."""
+
+    ADMIN_CLIENT, CLIENT = 424242, 777
+
+    def __init__(self, sides) -> None:
+        self.sides = sides  # [(service, peering)]
+        self.alive = [True] * len(sides)
+        self.pump_s, self.slab_bytes = [], []
+        self._cmd = self._admin_cmd = 0
+
+    def shuttle(self, rounds: int = 1) -> None:
+        import pickle
+
+        for _ in range(rounds):
+            t0, nbytes = time.perf_counter(), 0
+            for i, (svc, peering) in enumerate(self.sides):
+                if not self.alive[i]:
+                    continue
+                svc.pump(1)
+                for proc, slab in peering.extract().items():
+                    nbytes += len(pickle.dumps(slab, protocol=pickle.HIGHEST_PROTOCOL))
+                    if self.alive[proc]:
+                        self.sides[proc][1].inject(slab)
+            self.pump_s.append(time.perf_counter() - t0)
+            self.slab_bytes.append(nbytes)
+
+    def live(self):
+        return [s for i, s in enumerate(self.sides) if self.alive[i]]
+
+    def settle(self, G: int, max_rounds: int = 800) -> None:
+        for _ in range(max_rounds):
+            self.shuttle()
+            per = [svc.driver.leaders_per_group() for svc, _ in self.live()]
+            if all(sum(int(a[g]) for a in per) == 1 for g in range(G)):
+                return
+        raise AssertionError("split: the groups did not elect one leader each")
+
+    def admin(self, kind: str, arg, max_rounds: int = 2000) -> None:
+        self._admin_cmd += 1
+        t = None
+        for _ in range(max_rounds):
+            if t is not None and t.done and not t.failed:
+                return
+            if t is None or t.done:
+                for svc, _ in self.live():
+                    nt = svc.ctrl_local(kind, arg, command_id=self._admin_cmd,
+                                        client_id=self.ADMIN_CLIENT)
+                    if nt is not None:
+                        t = nt
+                        break
+            self.shuttle()
+        raise AssertionError(f"split: ctrler {kind} never committed")
+
+    def client_op(self, op: str, key: str, value: str = "", max_rounds: int = 2000) -> str:
+        from multiraft_tpu_torch.services.shardkv import key2shard
+
+        self._cmd += 1
+        t = None
+        for _ in range(max_rounds):
+            if t is not None and t.done and not t.failed and t.err == "OK":
+                return t.value
+            if t is None or t.done:
+                t = None
+                live = self.live()
+                gid = live[0][0].query_latest().shards[key2shard(key)]
+                for svc, _ in live:
+                    if gid in svc.reps:
+                        t = svc.submit_local(gid, op, key, value, client_id=self.CLIENT,
+                                             command_id=self._cmd)
+                        if t is not None:
+                            break
+            self.shuttle()
+        raise AssertionError(f"split: {op}({key!r}) never committed")
+
+    def migrating(self) -> bool:
+        from multiraft_tpu_torch.services.shardkv import SERVING
+
+        return any(sl.state != SERVING for svc, _ in self.live()
+                   for r in svc.reps.values() for sl in r.shards.values())
+
+    def wait(self, pred, max_rounds: int, what: str) -> None:
+        for _ in range(max_rounds):
+            if pred():
+                return
+            self.shuttle()
+        raise AssertionError(f"split: {what} not reached in {max_rounds} rounds")
+
+    def migrated(self, gids) -> bool:
+        from multiraft_tpu_torch.services.shardkv import SERVING
+
+        latest = max(svc.configs[-1].num for svc, _ in self.live())
+        return all(svc.reps[g].cur.num == latest
+                   and all(sl.state == SERVING for sl in svc.reps[g].shards.values())
+                   for svc, _ in self.live() for g in gids)
+
+
+def _split_sides(cls, device, owners, cfg, delay_on=None, delay=300):
+    from multiraft_tpu_torch.engine.host import EngineDriver
+    from multiraft_tpu_torch.engine.split import SplitPeering, SplitSpec
+
+    sides = []
+    for me, seed in ((0, 11), (1, 22)):
+        d = EngineDriver(cfg, seed=seed, device=device)
+        svc = cls(d)
+        peering = SplitPeering(d, svc, SplitSpec(me=me, owners=owners))
+        if delay_on == me:
+            d.state = d.state._replace(elect_dl=d.state.elect_dl + delay)
+        sides.append((svc, peering))
+    return sides
+
+
+SPLIT = dict(G=64, P=3, L=64, E=8, INGEST=8, host_paced_compaction=True)
+
+
+def sharded_split(card: str) -> dict:
+    """6(b): two split drivers on one card, slabs shuttled every pump:
+    a SplitKV pair elects and commits; a SplitShardKV pair runs the
+    kill-mid-migration scenario and the survivor finishes alone."""
+    import numpy as np
+
+    from multiraft_tpu_torch.engine.core import EngineConfig
+    from multiraft_tpu_torch.engine.kv import KVOp
+    from multiraft_tpu_torch.engine.split import SplitKV
+    from multiraft_tpu_torch.engine.split_shard import SplitShardKV
+    from multiraft_tpu_torch.porcupine.types import OP_APPEND
+    from multiraft_tpu_torch.services.shardkv import key2shard
+
+    cfg = EngineConfig(use_kernels=True, **SPLIT)
+    G = cfg.G
+    owners = {g: [0, 1, 1] for g in range(G)}
+    t0 = time.perf_counter()
+    kv = _SplitRig(_split_sides(SplitKV, "cuda", owners, cfg))
+    kv.settle(G)
+    acked = {}
+    for i, g in enumerate(range(0, G, 8)):
+        for r in range(3):
+            side = next(s for s, _ in kv.live() if s.local_leader(g) is not None)
+            t = side.submit_local(g, KVOp(op=OP_APPEND, key=f"k{g}", value=f"[{r}]",
+                                          client_id=5, command_id=i * 3 + r + 1))
+            kv.wait(lambda: t.done, 300, "a split KV commit")
+            if t.failed:
+                raise AssertionError("split: a KV append lost its slot")
+            acked[g] = acked.get(g, "") + f"[{r}]"
+    kv.wait(lambda: all(s.data[g].get(f"k{g}") == v for s, _ in kv.sides
+                        for g, v in acked.items()), 200, "both sides applied")
+    kv_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    rig = _SplitRig(_split_sides(SplitShardKV, "cuda", owners, cfg, delay_on=1))
+    rig.settle(G)
+    lead0 = sum(rig.sides[0][0].driver.leader_of(g) is not None for g in range(G))
+    rig.admin("join", {1: ["p1"]})
+    keys = [chr(ord("a") + i) + "key" for i in range(10)]
+    model = {}
+    for k in keys:
+        rig.client_op("Append", k, f"[a-{k}]")
+        model[k] = f"[a-{k}]"
+    rig.admin("join", {2: ["p2"]})
+    rig.wait(rig.migrating, 1500, "migration in flight")
+    kill_tick = rig.sides[1][0].driver.tick
+    rig.alive[0] = False  # driver 0 stops pumping; its slabs are dropped
+    survivor = rig.sides[1][0]
+    stay = next(k for k in keys if survivor.configs[-1].shards[key2shard(k)] == 1)
+    rig.client_op("Append", stay, "[during]")
+    model[stay] += "[during]"
+    try:
+        rig.wait(lambda: rig.migrated([1, 2]), 4000, "migration on the survivor")
+    except AssertionError:
+        st = survivor.driver.np_state()
+        stalled = np.nonzero(_full_ring_stalls(st, cfg))[0].tolist()
+        raise AssertionError(f"split: migration did not finish on the survivor; groups "
+                             f"stalled by the full-ring predicate: {stalled}")
+    for k in keys:
+        got = rig.client_op("Get", k)
+        if got != model[k]:
+            raise AssertionError(f"split: lost {k}: {got!r} != {model[k]!r}")
+    latest = survivor.configs[-1]
+    for s, g in enumerate(latest.shards):
+        if g == 2 and survivor.reps[1].shards[s].data:
+            raise AssertionError(f"split: gid 1 kept shard {s} after the migration")
+    stalls = int(_full_ring_stalls(survivor.driver.np_state(), cfg).sum())
+    shard_s = time.perf_counter() - t0
+    pumps = np.asarray(rig.pump_s) * 1e3
+    slab = np.asarray(rig.slab_bytes)
+    out = dict(G=G, kv_s=kv_s, shard_s=shard_s, leaders_on_side0=lead0,
+               kill_tick=kill_tick, survivor_ticks=survivor.driver.tick - kill_tick,
+               pump_ms=dict(p50=float(np.percentile(pumps, 50)),
+                            p90=float(np.percentile(pumps, 90)), n=len(pumps)),
+               slab_bytes=dict(p50=float(np.percentile(slab, 50)), max=int(slab.max())),
+               kv_pump_ms_p50=float(np.percentile(np.asarray(kv.pump_s) * 1e3, 50)),
+               stalled=stalls)
+    log(f"split: G={G} P=3 L=64 E=8 INGEST=8, host-paced compaction, kernels on, "
+        f"owners [0, 1, 1]: SplitKV pair committed {sum(len(v) // 3 for v in acked.values())} "
+        f"appends in {len(acked)} groups, both sides applied them ({kv_s:.2f} s); "
+        f"SplitShardKV pair: {lead0} of {G} leaders on driver 0, join 1, 10 appends, "
+        f"join 2, driver 0 killed mid-migration at tick {kill_tick}; driver 1 finished "
+        f"the pull and the GC handshake alone in {out['survivor_ticks']} ticks and "
+        f"served every acked write ({shard_s:.2f} s); ms per pump with slab exchange "
+        f"p50 {out['pump_ms']['p50']:.2f} p90 {out['pump_ms']['p90']:.2f} "
+        f"(SplitKV pair p50 {out['kv_pump_ms_p50']:.2f}), slab bytes per pump p50 "
+        f"{out['slab_bytes']['p50']:.0f} max {out['slab_bytes']['max']}; "
+        f"{stalls} groups stalled by the full-ring predicate [{card}]")
+    return out
+
+
+def _sharded_state(skv, tickets) -> dict:
+    """The sharded service and its engine, as plain Python and numpy:
+    every state and inbox plane, the configs, every replica's configs,
+    shard states, data and dedup tables, and the tickets' outcomes."""
+    import dataclasses
+
+    d = skv.driver
+    out = {"s." + k: v for k, v in d.np_state().items()}
+    out.update({"i." + k: v.detach().cpu().numpy() for k, v in d.inbox._asdict().items()})
+    out["configs"] = [dataclasses.asdict(c) for c in skv.configs]
+    out["reps"] = {g: (dataclasses.asdict(r.cur), dataclasses.asdict(r.prev),
+                       {s: (sl.state, sl.data, sl.latest) for s, sl in r.shards.items()})
+                   for g, r in skv.reps.items()}
+    out["route"] = skv.shard_table().cpu().tolist()
+    out["tickets"] = [dataclasses.astuple(t) for t in tickets]
+    out["applied_upto"] = list(skv.applied_upto)
+    return out
+
+
+def _same_state(a: dict, b: dict, where: str) -> None:
+    import numpy as np
+
+    for k in a:
+        x, y = a[k], b[k]
+        if isinstance(x, np.ndarray):
+            same = x.dtype == y.dtype and np.array_equal(x, y)
+        else:
+            same = x == y
+        if not same:
+            raise AssertionError(f"card vs CPU at {where}: {k} differs")
+
+
+def _sharded_script(skv, tickets: list, mark) -> None:
+    """A seeded sharded run: join, writes, leave, move; each write's
+    ticket goes into ``tickets``, and ``mark(tag)`` is called at each
+    admin point and at the end."""
+    import numpy as np
+
+    from multiraft_tpu_torch.services.shardkv import key2shard
+
+    rng = np.random.default_rng(29)
+
+    def writes(n, rnd):
+        for i in range(n):
+            k = f"{chr(40 + int(rng.integers(0, 80)))}{int(rng.integers(0, 50))}"
+            gid = skv.configs[-1].shards[key2shard(k)]
+            if gid:
+                tickets.append(skv.submit(gid, "Append" if i % 3 else "Put", k,
+                                          f"<{rnd}.{i}>", client_id=1 + i % 7,
+                                          command_id=rnd * 100 + i + 1))
+        for _ in range(6):
+            skv.pump(5)
+
+    G = skv.driver.cfg.G
+    skv.admin_sync("join", list(range(1, G // 2)))
+    mark("join")
+    for rnd in range(4):
+        writes(40, rnd)
+    skv.admin_sync("leave", list(range(1, G // 8)))
+    mark("leave")
+    for rnd in range(4, 8):
+        writes(40, rnd)
+    skv.admin_sync("move", (3, G - 2))
+    mark("move")
+    writes(40, 8)
+    for _ in range(60):
+        if _settled(skv) and all(t.done for t in tickets):
+            break
+        skv.pump(5)
+    mark("end")
+
+
+def sharded_card_vs_cpu(card: str) -> dict:
+    """6(c), first half: the same seeded sharded script at G=64 on a
+    card driver (kernels) and on a CPU driver (their plain versions);
+    the engine planes and the whole service state are equal at every
+    admin point and at the end."""
+    from multiraft_tpu_torch.engine.core import EngineConfig
+    from multiraft_tpu_torch.engine.host import EngineDriver
+    from multiraft_tpu_torch.engine.shardkv import BatchedShardKV
+
+    cfg = EngineConfig(G=64, P=3, L=64, E=8, INGEST=8, use_kernels=True)
+    runs, secs = [], []
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        d = EngineDriver(cfg, seed=31, device=dev)
+        if not d.run_until_quiet_leaders(1000):
+            raise AssertionError(f"card vs CPU: no leaders on {dev}")
+        skv = BatchedShardKV(d)
+        seen, tickets = [], []
+        _sharded_script(skv, tickets,
+                        lambda tag: seen.append((tag, _sharded_state(skv, tickets))))
+        runs.append(seen)
+        secs.append(time.perf_counter() - t0)
+    for (tag, a), (_, b) in zip(*runs):
+        _same_state(a, b, tag)
+    end = runs[0][-1][1]
+    if not all(t[1] and not t[2] for t in end["tickets"]):
+        raise AssertionError("card vs CPU: a write did not resolve")
+    log(f"card vs CPU: G=64 P=3 L=64 sharded script (join, {len(end['tickets'])} "
+        f"writes, leave, move) equal on every plane, config, replica and ticket at "
+        f"{[t for t, _ in runs[0]]}; config {end['configs'][-1]['num']}, "
+        f"{runs[0][-1][1]['s.tick_no']} ticks; card {secs[0]:.2f} s, CPU "
+        f"{secs[1]:.2f} s [{card}]")
+    return dict(card_s=secs[0], cpu_s=secs[1], writes=len(end["tickets"]))
+
+
+def sharded_facades(card: str) -> dict:
+    """6(c), second half: the placement controller's replace-dead-voter
+    legs through the ``*_gid`` facades, at serve-shardkv's shape with
+    spares (G=64 x P=5, three voters seeded), on the plain path; each
+    leg runs twice to show it is idempotent."""
+    from multiraft_tpu_torch.engine.core import EngineConfig
+    from multiraft_tpu_torch.engine.host import EngineDriver
+    from multiraft_tpu_torch.engine.shardkv import BatchedShardKV
+
+    cfg = EngineConfig(G=64, P=5, L=64, E=8, INGEST=8, use_kernels=False,
+                       membership=True)
+    d = EngineDriver(cfg, seed=37, device="cuda")
+    d.seed_config([0, 1, 2])
+    if not d.run_until_quiet_leaders(2000):
+        raise AssertionError("facades: no leaders")
+    skv = BatchedShardKV(d)
+    skv.admin_sync("join", list(range(1, 64)))
+    gid = 7
+    lead = d.leader_of(gid)
+    dead = next(q for q in (0, 1, 2) if q != lead)
+    spare = 3
+    target = sorted({0, 1, 2, spare} - {dead})
+    legs = {}
+
+    def leg(name, fn, want=None):
+        t0 = time.perf_counter()
+        got = [fn(), fn()]
+        legs[name] = time.perf_counter() - t0
+        if got[0] != got[1] or (want is not None and got[0] != want):
+            raise AssertionError(f"facades: {name} answered {got}")
+        return got[0]
+
+    leg("kill_replica_gid", lambda: skv.kill_replica_gid(gid, dead), True)
+    health = leg("replica_health", lambda: skv.replica_health(gid))
+    if health["alive"][dead] or health["voters_old"] != [0, 1, 2]:
+        raise AssertionError(f"facades: health {health}")
+    leg("add_learner_gid", lambda: skv.add_learner_gid(gid, spare), True)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        skv.pump(5)
+        m = skv.learner_match_gid(gid, spare)
+        if m is not None and m[0] >= m[1]:
+            break
+    catch_up = time.perf_counter() - t0
+    m = leg("learner_match_gid", lambda: skv.learner_match_gid(gid, spare))
+    if m is None or m[0] < m[1]:
+        raise AssertionError(f"facades: the learner did not catch up: {m}")
+    leg("begin_joint_gid", lambda: skv.begin_joint_gid(gid, target), True)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        skv.pump(5)
+        c = skv.config_of_gid(gid)
+        if c is not None and not c["joint"] and c["voters_old"] == target:
+            break
+    joint = time.perf_counter() - t0
+    c = skv.config_of_gid(gid)
+    if c is None or c["joint"] or c["voters_old"] != target or c["voters_new"] != target:
+        raise AssertionError(f"facades: the dead voter was not replaced: {c}")
+    if not skv.begin_joint_gid(gid, target):
+        raise AssertionError("facades: begin_joint_gid at the settled target refused")
+    log(f"facades: G=64 P=5 plain path, voters [0, 1, 2]; gid {gid}: voter {dead} "
+        f"killed and replaced by slot {spare}, voters now {target}; seconds per "
+        f"leg (each run twice) { {k: round(v, 4) for k, v in legs.items()} }, "
+        f"learner catch-up {catch_up:.2f} s, joint change {joint:.2f} s [{card}]")
+    return dict(legs_s=legs, catch_up_s=catch_up, joint_s=joint)
+
+
+def phase_sharded(card: str, kernels) -> dict:
+    """Phase 6: every sub-phase driven with the launch counts set to 0
+    just before it and read just after."""
+    out = {}
+    for name, fn, want in (("sharded", sharded_headline, "launched"),
+                           ("split", sharded_split, "launched"),
+                           ("card_vs_cpu", sharded_card_vs_cpu, "launched"),
+                           ("facades", sharded_facades, "none")):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out[name] = fn(card)
+        out[name]["phase_s"] = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        out[name]["launches"] = launches
+        log(f"{name}: launches {launches}, {out[name]['phase_s']:.2f} s [{card}]")
+        if want == "launched" and min(launches.values()) <= 0:
+            raise AssertionError(f"{name}: a kernel never launched: {launches}")
+        if want == "none" and max(launches.values()) > 0:
+            raise AssertionError(f"{name}: the plain path launched {launches}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -896,6 +1593,7 @@ def main() -> int:
 
     phase_whole_engine()
     ops = phase_operations(card, kernels)
+    sharded = phase_sharded(card, kernels)
 
     line = []
     for name in ("quorum_commit", "vote_tally"):
@@ -924,6 +1622,7 @@ def main() -> int:
         })
     log(f"firehose: {json.dumps(fh)}")
     log(f"operations: {json.dumps(ops)}")
+    log(f"sharded engine: {json.dumps(sharded)} [{card}]")
     log(f"total: {time.perf_counter() - t_start:.1f} s [{card}]")
     log(json.dumps({"kernels": line}))
     print(json.dumps({

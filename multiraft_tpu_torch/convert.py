@@ -89,7 +89,11 @@ def key_from_numpy(key: Any) -> torch.Tensor:
 # Reference class (module, name) -> this package's counterpart, for
 # every class a reference checkpoint pickles: the engine config, the
 # driver's payload carriers, the KV service's ops and tickets, firehose
-# frames, and the porcupine records in a service's recorded histories.
+# frames, the porcupine records in a service's recorded histories, and
+# the sharded services' configs, replicas, shard slots, ops and tickets.
+_SHARDKV = ("ShardTicket", "_ClientOp", "_CtrlOp", "_ConfigOp", "_InsertOp",
+            "_DeleteOp", "_ConfirmOp", "_ShardSlot", "_Replica")
+
 CHECKPOINT_CLASSES: Dict[tuple, tuple] = {
     ("multiraft_tpu.engine.core", "EngineConfig"):
         ("multiraft_tpu_torch.convert", "ReferenceEngineConfig"),
@@ -109,6 +113,12 @@ CHECKPOINT_CLASSES: Dict[tuple, tuple] = {
         ("multiraft_tpu_torch.porcupine.types", "KvInput"),
     ("multiraft_tpu.porcupine.kv", "KvOutput"):
         ("multiraft_tpu_torch.porcupine.types", "KvOutput"),
+    ("multiraft_tpu.services.shardctrler", "Config"):
+        ("multiraft_tpu_torch.services.shardctrler", "Config"),
+    ("multiraft_tpu.engine.split_shard", "_NoOp"):
+        ("multiraft_tpu_torch.engine.split_shard", "_NoOp"),
+    **{("multiraft_tpu.engine.shardkv", name):
+       ("multiraft_tpu_torch.engine.shardkv", name) for name in _SHARDKV},
 }
 
 

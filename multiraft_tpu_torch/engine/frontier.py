@@ -1,8 +1,9 @@
 """Shared scaffolding for services on the batched engine (PyTorch port
 of ``multiraft_tpu/engine/frontier.py``).
 
-Batched services (:class:`~multiraft_tpu_torch.engine.kv.BatchedKV`)
-follow the same loop: advance the device tick, pop committed ``(group, index)`` payload
+Both batched services (:class:`~multiraft_tpu_torch.engine.kv.BatchedKV`,
+:class:`~multiraft_tpu_torch.engine.shardkv.BatchedShardKV`) follow the
+same loop: advance the device tick, pop committed ``(group, index)`` payload
 bindings in order and apply them, and periodically fail tickets whose
 binding was truncated by a leader change (the batched analog of kvraft
 waiters resolving ErrWrongLeader on term change,
@@ -166,7 +167,7 @@ class FrontierService:
         last_cache: Dict[int, Optional[int]] = {}
         for (g, idx) in list(self.driver.payloads.keys()):
             if g not in last_cache:
-                p = self.driver.leader_of(g)
+                p = self.driver.leader_of(g, st)
                 last_cache[g] = (
                     None
                     if p is None

@@ -1010,8 +1010,13 @@ class EngineDriver:
         max_term = np.where(lead, st["term"], -1).max(axis=1, keepdims=True)
         return (lead & (st["term"] == max_term)).sum(axis=1)
 
-    def leader_of(self, g: int) -> Optional[int]:
-        st = self.np_state()
+    def leader_of(
+        self, g: int, st: Optional[Dict[str, np.ndarray]] = None
+    ) -> Optional[int]:
+        """The live leader of group ``g`` with the highest term, if any.
+        Pass a pre-read ``st`` when asking about many groups."""
+        if st is None:
+            st = self.np_state()
         lead = np.nonzero((st["role"][g] == LEADER) & st["alive"][g])[0]
         if len(lead) == 0:
             return None

@@ -1,0 +1,683 @@
+"""Cross-process replica groups — a group's P peers split over several
+chip-owning engine processes (PyTorch port of
+``multiraft_tpu/engine/split.py``).
+
+Everywhere else in the engine stack, one process hosts *all* P peers of
+its groups: the fleet partitions by gid, the mesh shards groups over
+chips, and consensus stays inside one tensor.  That makes each process a
+whole-group failure domain — losing it loses every replica of its
+groups at once, and durability degenerates to checkpoint+WAL on one
+disk.  This module restores the reference's per-server failure
+independence (reference: labrpc/labrpc.go:316-364 per-edge enables,
+raft/config.go:113-142 per-server crash) the TPU-native way:
+
+* Each participating process runs the SAME batched engine shapes
+  ``[G, P]`` for the split groups, but *owns* only a subset of the P
+  peer slots per group.  Non-owned ("remote") slots are masked
+  ``alive=False`` locally: they never tick, never send, and deliveries
+  to them are masked — the real peer lives in another process.
+* After every device tick, the boundary mailbox lanes
+  ``[g, src∈owned, dst∈remote]`` are pulled to host as a **slab** and
+  shipped to the owning peer process over the fleet transport; incoming
+  slabs are OR-injected into the local inbox at
+  ``[g, src∈remote, dst∈owned]`` before the next tick.  Consensus
+  within each chip stays zero-collective; the slab exchange is plain
+  host-side RPC (SURVEY §2.2's "node↔node over DCN/gRPC").
+* Append lanes carry their **entry payloads** (the host-side commands
+  the device only orders as (term, index)) and, for InstallSnapshot
+  fast-forwards, the service's per-group state blob — so every process
+  hosting a replica materializes the full applied state machine, and a
+  client can fail over to whichever process holds the new leader.
+
+Payload identity is **(group, index, term)** — the same identity the
+device log orders.  Terms at one index are NOT monotone across rebinds
+(Raft figure-8: an uncommitted higher-term binding can be replaced by
+a committed lower-term entry), so payload candidates are kept per term
+and the committed entry's term — read from the device ring at apply
+time, the log being the single source of truth — picks the command to
+apply.  To keep that read always possible, the peering clamps device
+``applied`` down to the host's applied frontier for split groups, so
+ring compaction never passes an index the host has yet to apply.
+
+Failure model: a slab that never arrives is a dropped message — Raft
+retries by design (heartbeat repair, conflict backoff), so a slow or
+dead peer only adds latency, never corrupts.  Losing a process loses
+exactly its owned slots; if the surviving processes hold a quorum of a
+group, the group keeps electing and committing, and every acknowledged
+write is intact from replication alone — no WAL replay.
+
+Crash model: a killed process must NOT be restarted with FRESH state
+under the same peer identity — a Raft peer that forgets its term/vote
+can double-vote (the reference always carries the Persister across
+restarts, raft/config.go:113-142).  Two supported modes:
+
+* non-durable — a lost process stays lost; the surviving quorum keeps
+  the group available with every acked write intact;
+* durable (the reference's ``distributed/split_server.SplitPersistence``,
+  not yet in this package) — each process fsyncs its owned slots'
+  term/vote/log BEFORE each pump's slabs leave, so kill -9 + restart on
+  the same data_dir REJOINS safely (the Persister-carryover crash
+  model, at engine-slice granularity).
+
+This is the fault-tolerance serving path, not the 100k-group bench
+path: slab extraction costs one small host readback per tick, so split
+groups are meant for the distributed deployment shapes (G up to a few
+hundred), with throughput-critical groups staying whole-chip.
+
+Device side: the remote-slot mask, the staged-lane merge and the paced
+``applied`` are written out of place (the planes may be shared with a
+caller, a monitor or a batch in flight); :meth:`SplitPeering.extract`
+and the per-tick ring view gather the split groups' rows with one
+``index_select`` per plane into pinned host buffers and wait once.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .core import Mailbox
+from .host import EngineDriver, _set
+from .kv import BatchedKV, KVOp, Ticket, apply_kv_op
+
+__all__ = ["SplitSpec", "SplitPeering", "SplitFrontierMixin", "SplitKV"]
+
+_PREFIXES = ("vr_", "vp_", "ar_", "ap_")
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitSpec:
+    """Placement of the split groups' peer slots over processes.
+
+    ``owners[g]`` is a length-P list: ``owners[g][p]`` = process index
+    that owns peer slot ``p`` of group ``g``.  Groups absent from
+    ``owners`` are wholly local to every process that hosts them (the
+    ordinary engine deployment).  All participating processes must be
+    constructed with the *same* spec (it is part of cluster config,
+    like the reference harness's server lists)."""
+
+    me: int
+    owners: Dict[int, List[int]]
+
+    def owned_slots(self, g: int) -> List[int]:
+        return [p for p, o in enumerate(self.owners[g]) if o == self.me]
+
+    def remote_slots(self, g: int) -> List[int]:
+        return [p for p, o in enumerate(self.owners[g]) if o != self.me]
+
+    def peer_procs(self) -> List[int]:
+        return sorted(
+            {o for owner in self.owners.values() for o in owner}
+            - {self.me}
+        )
+
+
+class SplitPeering:
+    """Owns the slab exchange for one process's :class:`EngineDriver`.
+
+    Construction masks the remote slots dead; :meth:`extract` builds
+    one slab per peer process from the just-produced outbox (call after
+    every ``pump``/``step``); :meth:`inject` merges a received slab
+    into the inbox (call from the transport handler, same thread as the
+    tick loop).  Payload candidate storage, term arbitration, and
+    retention GC live here too.
+    """
+
+    GC_EVERY = 64  # ticks between payload-retention GC sweeps
+
+    def __init__(self, driver: EngineDriver, service: "SplitKV",
+                 spec: SplitSpec) -> None:
+        P = driver.cfg.P
+        for g, owner in spec.owners.items():
+            if len(owner) != P:
+                raise ValueError(
+                    f"SplitSpec.owners[{g}] must list {P} slots"
+                )
+            if not 0 <= g < driver.cfg.G:
+                raise ValueError(f"split group {g} outside engine G")
+        if not driver.cfg.host_paced_compaction:
+            raise ValueError(
+                "split groups need EngineConfig(host_paced_compaction="
+                "True): term arbitration reads committed entries' terms "
+                "from the ring, so compaction must not outrun the host "
+                "apply frontier"
+            )
+        self.driver = driver
+        self.service = service
+        self.spec = spec
+        self.split_gs = sorted(spec.owners)
+        self._owned = {g: spec.owned_slots(g) for g in self.split_gs}
+        self._remote = {g: spec.remote_slots(g) for g in self.split_gs}
+        # Resends need payloads after first apply: keep them until the
+        # ring floor passes (entries below base travel as snapshots).
+        service.retain_payloads = True
+        service.peering = self
+        if hasattr(service, "_attach_peering"):
+            service._attach_peering(self)  # per-process identity setup
+        self._gc_countdown = self.GC_EVERY
+        # (g, idx) -> {term: payload}.  The DEVICE log is the sole
+        # arbiter of which command occupies an index: candidates from
+        # local ingest and from peer slabs are kept per term, and the
+        # committed entry's ring term picks the one to apply
+        # (see resolve()).  driver.payloads keeps a representative so
+        # the base FrontierService machinery (orphan sweeps, eviction)
+        # still sees bindings.
+        self._cands: Dict[Tuple[int, int], Dict[int, Any]] = {}
+        driver.on_payload_bound = self._on_local_bound
+        # Persistence hook (the reference's split_server.SplitPersistence):
+        # fired for every NEW candidate — (g, idx, term, payload) —
+        # so the WAL can re-materialize commands on restart.
+        self.on_candidate = None
+        # Extra GC floor per group (the persistence snapshot frontier):
+        # candidates above the ring floor may still be needed to replay
+        # service state from the last snapshot.
+        self.gc_floor: Dict[int, int] = {}
+        # Mask remote slots dead BEFORE any tick: they belong to peers.
+        # Out of place: the plane may be shared with another holder.
+        driver.state = driver.state._replace(
+            alive=_set(driver.state.alive, *[
+                ((g, p), False) for g in self.split_gs for p in self._remote[g]
+            ])
+        )
+        self._g_index = torch.tensor(
+            self.split_gs, dtype=torch.long, device=driver.device
+        )
+        self._g_pos = {g: i for i, g in enumerate(self.split_gs)}
+        # Per-pump cached device view for term arbitration (ring/base of
+        # the split groups); refreshed lazily per tick on first use.
+        self._view = None
+        self._view_tick = -1
+        # Pinned host buffers for the rows of the split groups, one per
+        # plane (see _gather_rows), allocated at first use.
+        self._pinned: Dict[str, torch.Tensor] = {}
+        # Injected lanes STAGE into host overlay buffers that merge into
+        # the device inbox in one pass per pump (flush_staged, called by
+        # SplitFrontierMixin.pump before the tick), instead of a device
+        # write per lane.
+        S, P, E = len(self.split_gs), driver.cfg.P, driver.cfg.E
+        self._stage_vals = {}
+        if S:
+            for f in Mailbox._fields:
+                a = getattr(driver.inbox, f)
+                shape = (S, P, P, E) if a.ndim == 4 else (S, P, P)
+                self._stage_vals[f] = np.zeros(
+                    shape, torch.empty(0, dtype=a.dtype).numpy().dtype
+                )
+        self._stage_mask = {p: np.zeros((max(S, 1), P, P), bool)
+                            for p in _PREFIXES}
+        self._stage_dirty = False
+
+    def _gather_rows(self, planes: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+        """The split groups' rows of each plane, on the host: one
+        ``index_select`` per plane, copied without blocking into a
+        pinned buffer on a card, then one wait for all of them.  On a
+        card the arrays are views of those buffers, valid until the
+        next gather of the same plane."""
+        idx = self._g_index
+        if idx.device.type != "cuda":
+            return {k: a.index_select(0, idx).numpy() for k, a in planes.items()}
+        out = {}
+        for k, a in planes.items():
+            shape = (len(self.split_gs),) + tuple(a.shape[1:])
+            buf = self._pinned.get(k)
+            if buf is None or tuple(buf.shape) != shape or buf.dtype != a.dtype:
+                buf = self._pinned[k] = torch.empty(
+                    shape, dtype=a.dtype, pin_memory=True
+                )
+            buf.copy_(a.index_select(0, idx), non_blocking=True)
+            out[k] = buf
+        torch.cuda.current_stream(idx.device).synchronize()
+        return {k: b.numpy() for k, b in out.items()}
+
+    # -- payload candidates ------------------------------------------------
+
+    def _on_local_bound(self, g: int, idx: int, term: int) -> None:
+        if g in self.spec.owners:
+            payload = self.driver.payloads[(g, idx)]
+            cands = self._cands.setdefault((g, idx), {})
+            if term not in cands and self.on_candidate is not None:
+                self.on_candidate(g, idx, term, payload)
+            cands[term] = payload
+
+    def _ring_view(self):
+        """Host copy of (log_term, base, base_term, commit) for the
+        split groups, at most once per tick."""
+        if self._view_tick != self.driver.tick or self._view is None:
+            st = self.driver.state
+            # Views of pinned buffers that only the next tick's refresh
+            # overwrites (extract gathers mailbox planes, not these).
+            self._view = self._gather_rows({
+                "log_term": st.log_term,
+                "base": st.base,
+                "base_term": st.base_term,
+                "commit": st.commit,
+            })
+            self._view_tick = self.driver.tick
+        return self._view
+
+    def committed_term(self, g: int, idx: int) -> Optional[int]:
+        """Term of committed entry ``idx`` in group ``g``, read from an
+        owned replica's ring.  The applied-frontier clamp in
+        :meth:`SplitKV.pump` guarantees compaction never passes an
+        unapplied index, so the ring always covers what apply needs."""
+        v = self._ring_view()
+        gi = self._g_pos[g]
+        L = self.driver.cfg.L
+        for p in self._owned[g]:
+            if int(v["commit"][gi, p]) >= idx:
+                if idx == int(v["base"][gi, p]):
+                    return int(v["base_term"][gi, p])
+                if idx > int(v["base"][gi, p]):
+                    return int(v["log_term"][gi, p, idx % L])
+        return None  # not committed at any owned replica yet
+
+    def resolve(self, g: int, idx: int, fallback: Any) -> Any:
+        """Payload to apply for committed ``(g, idx)`` — see
+        :meth:`resolve_with_term`."""
+        return self.resolve_with_term(g, idx, fallback)[0]
+
+    def resolve_with_term(self, g: int, idx: int, fallback: Any):
+        """(payload, term) to apply for committed ``(g, idx)``: the
+        candidate whose term matches the device's committed entry.
+        Falls back to the representative binding (term None) when no
+        candidates were tracked (non-split group, or a payload that
+        arrived without churn)."""
+        cands = self._cands.get((g, idx))
+        if not cands:
+            return fallback, None
+        if len(cands) == 1:
+            term, payload = next(iter(cands.items()))
+            # Verify even the sole candidate against the committed
+            # entry's ring term (ADVICE r03): a sender-side eviction
+            # edge could leave only a stale-term candidate, and
+            # applying it silently would diverge replicas — the ring
+            # is the arbiter everywhere else, and the view is already
+            # cached per tick.
+            ct = self.committed_term(g, idx)
+            if ct is not None and ct != term:
+                return fallback, None
+            return payload, term
+        term = self.committed_term(g, idx)
+        if term is not None and term in cands:
+            return cands[term], term
+        return fallback, None
+
+    # -- outbound ---------------------------------------------------------
+
+    def extract(self) -> Dict[int, dict]:
+        """Pull the boundary lanes of the current outbox (stored as
+        ``driver.inbox`` after a step) and build one wire-ready slab per
+        peer process: ``{proc: {"msgs": [...], "payloads": [...],
+        "snaps": [...]}}``.  Empty slabs are omitted."""
+        if not self.split_gs:
+            return {}
+        mb = self.driver.inbox
+        # One gather per field and one wait (see _gather_rows).
+        sub = self._gather_rows(mb._asdict())
+        slabs: Dict[int, dict] = {}
+        snap_done = set()  # (proc, g): one blob per destination process
+        for gi, g in enumerate(self.split_gs):
+            owner = self.spec.owners[g]
+            for src in self._owned[g]:
+                for dst in self._remote[g]:
+                    proc = owner[dst]
+                    for prefix in _PREFIXES:
+                        if not sub[prefix + "active"][gi, src, dst]:
+                            continue
+                        fields = {
+                            f: _to_py(sub[f][gi, src, dst])
+                            for f in mb._fields
+                            if f.startswith(prefix)
+                        }
+                        slab = slabs.setdefault(
+                            proc, {"msgs": [], "payloads": [], "snaps": []}
+                        )
+                        slab["msgs"].append((g, src, dst, prefix, fields))
+                        if prefix == "ar_":
+                            self._attach_ar_extras(
+                                slab, proc, g, fields, snap_done
+                            )
+        self._maybe_gc()
+        return slabs
+
+    def _attach_ar_extras(self, slab, proc, g, fields, snap_done) -> None:
+        """Payloads for the entries an append lane carries; the service
+        state blob when the lane is an InstallSnapshot fast-forward."""
+        if fields["ar_snap"]:
+            # Keyed per (destination process, group): several peers can
+            # need the same group's snapshot simultaneously and each
+            # must get its own blob copy.
+            if (proc, g) not in snap_done:
+                snap_done.add((proc, g))
+                upto, blob = self.service.snapshot_group(g)
+                slab["snaps"].append((g, upto, blob))
+            return
+        prev, n = fields["ar_prev_idx"], fields["ar_n"]
+        for e in range(n):
+            idx = prev + 1 + e
+            term = fields["ar_terms"][e]
+            # Ship the candidate matching this lane's entry term — the
+            # exact identity the receiver's device will consider.
+            payload = self._cands.get((g, idx), {}).get(term)
+            if payload is None:
+                payload = self.driver.payloads.get((g, idx))
+            if payload is None:
+                continue  # binding evicted; device terms rule anyway
+            slab["payloads"].append(
+                (g, idx, term, self.service.export_payload(payload))
+            )
+
+    # -- inbound ----------------------------------------------------------
+
+    def inject(self, slab: dict) -> None:
+        """Merge a peer's slab: payloads/snapshots first (so entries
+        never commit locally before their commands are materialized),
+        then the mailbox lanes.  Lanes whose dst we do not own are
+        ignored (misrouted or stale-spec messages)."""
+        for g, upto, blob in slab.get("snaps", ()):
+            if g in self.spec.owners:
+                self._drop_below(g, upto)
+                self.service.install_group_snapshot(g, upto, blob)
+        for g, idx, term, wire in slab.get("payloads", ()):
+            if g not in self.spec.owners:
+                continue
+            cands = self._cands.setdefault((g, idx), {})
+            if term not in cands:
+                cands[term] = self.service.import_payload(wire)
+                if self.on_candidate is not None:
+                    self.on_candidate(g, idx, term, cands[term])
+            if (g, idx) not in self.driver.payloads:
+                # Representative for the base machinery; resolve()
+                # picks the term-correct candidate at apply time.
+                self.driver.payloads[(g, idx)] = cands[term]
+
+        # Lanes STAGE into host overlays; flush_staged merges them into
+        # the device inbox in one pass before the next tick
+        # (SplitFrontierMixin.pump).  Staging keeps the old
+        # last-write-wins semantics per lane.
+        for g, src, dst, prefix, fields in slab.get("msgs", ()):
+            if g not in self.spec.owners or dst not in self._owned[g]:
+                continue  # misrouted or stale-spec message
+            gi = self._g_pos[g]
+            self._stage_mask[prefix][gi, src, dst] = True
+            for f, v in fields.items():
+                self._stage_vals[f][gi, src, dst] = v
+            self._stage_dirty = True
+
+    def flush_staged(self) -> None:
+        """Merge every staged lane into the device inbox — one pass per
+        pump, out of place (called by the service's pump before the
+        tick)."""
+        if not self._stage_dirty:
+            return
+        # torch.tensor copies the staging buffers into fresh tensors
+        # before it returns: the ``m[:] = False`` reset below and the
+        # next pump's stage writes into _stage_vals cannot reach the
+        # lanes being merged.
+        dev, idx = self.driver.device, self._g_index
+        mb = self.driver.inbox
+        new = {}
+        for prefix in _PREFIXES:
+            m = torch.tensor(self._stage_mask[prefix], device=dev)
+            for f in Mailbox._fields:
+                if not f.startswith(prefix):
+                    continue
+                a = getattr(mb, f)
+                sub = a.index_select(0, idx)
+                mm = m[..., None] if sub.ndim == 4 else m
+                vals = torch.tensor(self._stage_vals[f], device=dev)
+                # index_copy without the underscore: out of place.
+                new[f] = a.index_copy(0, idx, torch.where(mm, vals, sub))
+        self.driver.inbox = mb._replace(**new)
+        for m in self._stage_mask.values():
+            m[:] = False
+        self._stage_dirty = False
+
+    # -- payload retention GC ---------------------------------------------
+
+    def _maybe_gc(self) -> None:
+        self._gc_countdown -= 1
+        if self._gc_countdown > 0:
+            return
+        self._gc_countdown = self.GC_EVERY
+        st = self.driver.np_state()
+        for g in self.split_gs:
+            floor = int(min(st["base"][g, p] for p in self._owned[g]))
+            # Persistence holds candidates back to its snapshot
+            # frontier (service-state replay needs their commands).
+            floor = min(floor, self.gc_floor.get(g, floor))
+            self._drop_below(g, floor, evict=False)
+
+    def _drop_below(self, g: int, floor: int, evict: bool = True) -> None:
+        """Drop retained payloads/candidates at or below ``floor``
+        (covered by the ring floor / an installed snapshot).  ``evict``
+        fails their tickets — used on snapshot install, where a locally
+        bound command below the new frontier can never resolve here."""
+        for (gg, idx) in list(self.driver.payloads.keys()):
+            if gg == g and idx <= floor:
+                payload = self.driver.payloads.pop((gg, idx))
+                if evict and self.driver.on_payload_evicted:
+                    self.driver.on_payload_evicted(payload)
+        for (gg, idx) in list(self._cands.keys()):
+            if gg == g and idx <= floor:
+                for payload in self._cands.pop((gg, idx)).values():
+                    if evict and self.driver.on_payload_evicted:
+                        self.driver.on_payload_evicted(payload)
+
+
+def _to_py(v):
+    """numpy scalar/array -> plain python for the wire codec."""
+    a = np.asarray(v)
+    if a.ndim == 0:
+        return a.item()
+    return a.tolist()
+
+
+class SplitFrontierMixin:
+    """The split-mode service scaffolding shared by :class:`SplitKV`
+    and :class:`~multiraft_tpu_torch.engine.split_shard.SplitShardKV`: the
+    host-paced compaction clamp and the lost-leadership flush.  The
+    host class must set ``self.peering`` (by :class:`SplitPeering`),
+    ``self._flush_countdown``, and implement ``_ticket_of(payload)``.
+    """
+
+    FLUSH_EVERY = 16
+
+    def _ticket_of(self, payload):  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def pump(self, n_ticks: int = 1, **kw) -> None:
+        """Merge staged peer lanes into the device inbox (one pass —
+        see SplitPeering.flush_staged) before ticking.  A lane
+        staged just before an edge cut in the same window merges anyway
+        — equivalent to a message that arrived right before the cut,
+        which the at-most-once model already admits."""
+        if self.peering is not None:
+            self.peering.flush_staged()
+        super().pump(n_ticks, **kw)
+
+    def _pre_sweep(self) -> None:
+        """The host half of ``host_paced_compaction``: raise the
+        device's ``applied`` to the PREVIOUS sweep's host frontier
+        (clipped into [base, commit] per replica).  Compaction then
+        never passes an index this sweep is about to apply, so term
+        arbitration (SplitPeering.resolve) can always read the
+        committed entry's term from the ring; the ring still drains at
+        one-pump lag, keeping ingest capacity available.  One write per
+        pump, out of place."""
+        if self.peering is None:
+            return
+        st = self.driver.state
+        upto = torch.tensor(
+            np.asarray(self.applied_upto, np.int32), device=st.applied.device
+        )
+        self.driver.state = st._replace(
+            applied=torch.maximum(
+                st.applied, torch.clamp(upto[:, None], st.base, st.commit)
+            )
+        )
+
+    def _flush_lost_leadership(self) -> None:
+        """A process that lost leadership holds work no local accept
+        will resolve: unbound backlog commands, and bound-but-
+        uncommitted payloads whose tickets would otherwise wedge.
+        Fail both so clients re-route — the batched analog of kvraft
+        resolving every waiter ErrWrongLeader on a term change
+        (reference: kvraft/server.go:98-128).  Failing is safe even
+        when the entry later commits via the new leader: the client
+        resubmits under the same (client_id, command_id) and dedup
+        absorbs the duplicate."""
+        self._flush_countdown -= 1
+        if self._flush_countdown > 0:
+            return
+        self._flush_countdown = self.FLUSH_EVERY
+        drv = self.driver
+        have_backlog = any(drv.backlog[g] for g in range(drv.cfg.G))
+        have_tickets = any(
+            (t := self._ticket_of(p)) is not None and not t.done
+            for p in drv.payloads.values()
+        )
+        if not have_backlog and not have_tickets:
+            return
+        leaders = drv.leaders_per_group()
+        for g in range(drv.cfg.G):
+            if drv.backlog[g] and leaders[g] == 0:
+                for payload in drv._pending_payloads.pop(g, []):
+                    self._on_evicted(payload)
+                drv.backlog[g] = 0
+        if have_tickets:
+            for (g, _idx), payload in drv.payloads.items():
+                ticket = self._ticket_of(payload)
+                if (
+                    leaders[g] == 0
+                    and ticket is not None and not ticket.done
+                ):
+                    # Fail the ticket but KEEP the payload: if this
+                    # process regains leadership the entry may still
+                    # commit and must apply with its command.
+                    self._on_evicted(payload)
+
+
+class SplitKV(SplitFrontierMixin, BatchedKV):
+    """KV state machine for split groups: every hosting process applies
+    the same committed log to its own copy (the reference's per-server
+    apply loop, kvraft/server.go:98-128, across processes), so client
+    traffic can fail over to whichever process owns the new leader.
+
+    Divergences from :class:`BatchedKV` (documented):
+
+    * **Gets ride the log.**  The sole-acker ReadIndex collapse
+      (kv.py:get) is single-process reasoning; across processes the
+      simple, always-correct rule is the reference's own — reads are
+      log entries too (SURVEY §3.4 "no lease/read-index optimization
+      anywhere").
+    * **Leadership is a submission gate.**  ``submit_local`` fails fast
+      when no owned slot leads the group; the serving layer replies
+      ErrWrongLeader and the clerk retries the peer process (reference
+      clerk rotation, kvraft/client.go:47-71).
+    * Payloads are retained for resend and disambiguated by entry term
+      (see :class:`SplitPeering`), stripped of tickets on the wire —
+      the remote process applies with ``ticket=None``; only the
+      ingesting process acks.
+    """
+
+    def __init__(self, driver: EngineDriver,
+                 record_groups: Optional[List[int]] = None) -> None:
+        super().__init__(driver, record_groups=record_groups)
+        self.retain_payloads = True
+        self.peering: Optional[SplitPeering] = None  # set by SplitPeering
+        self._flush_countdown = self.FLUSH_EVERY
+        # Persistence hooks.  on_applied: (g, idx, term, payload) for
+        # every applied entry of a split group (term -1 = fallback
+        # apply; the payload itself then carries the op for the WAL) —
+        # the service-state redo log.  on_snapshot_installed: a peer's
+        # InstallSnapshot blob just replaced group state.
+        self.on_applied = None
+        self.on_snapshot_installed = None
+
+    # -- wire adapters (used by SplitPeering) ------------------------------
+
+    @staticmethod
+    def export_payload(payload) -> tuple:
+        op, _ticket = payload
+        return (op.op, op.key, op.value, op.client_id, op.command_id)
+
+    @staticmethod
+    def import_payload(wire) -> tuple:
+        o, key, value, cid, cmd = wire
+        return (KVOp(op=o, key=key, value=value, client_id=cid,
+                     command_id=cmd), None)
+
+    def snapshot_group(self, g: int) -> Tuple[int, dict]:
+        """Applied state of group ``g`` for an InstallSnapshot slab:
+        the kvraft snapshot payload (KV map + dup table,
+        reference: kvraft/server.go:159-183) at the applied frontier."""
+        return self.applied_upto[g], {
+            "data": dict(self.data[g]),
+            "sessions": dict(self.sessions[g]),
+        }
+
+    # persist_group/restore_group/replay_apply: the service adapter
+    # trio SplitPersistence drives (shared contract with SplitShardKV).
+    persist_group = snapshot_group
+
+    def restore_group(self, g: int, upto: int, blob: dict) -> None:
+        self.data[g] = dict(blob["data"])
+        self.sessions[g] = dict(blob["sessions"])
+        self.applied_upto[g] = upto
+
+    def replay_apply(self, g: int, idx: int, payload) -> None:
+        """Redo one recovered applied entry onto host state — the same
+        apply function as the live path (engine/kv.py), so recovery
+        can never drift from serving semantics."""
+        apply_kv_op(self.data[g], self.sessions[g], payload[0])
+
+    def install_group_snapshot(self, g: int, upto: int, blob: dict) -> None:
+        if upto <= self.applied_upto[g]:
+            return  # stale slab: we are already past it
+        self.restore_group(g, upto, blob)
+        if self.on_snapshot_installed is not None:
+            # Persistence must capture this state before the next
+            # pump's raft slice (whose base jumped with it) is fsynced
+            # — else a crash in the window restores base past a service
+            # state that never saw the blob.
+            self.on_snapshot_installed(g)
+
+    # -- apply: term-arbitrated payload choice ------------------------------
+
+    def _ticket_of(self, payload):
+        return payload[1]
+
+    def _apply(self, g: int, idx: int, payload: Any, now: int) -> None:
+        if self.peering is not None and g in self.peering.spec.owners:
+            payload, term = self.peering.resolve_with_term(g, idx, payload)
+            super()._apply(g, idx, payload, now)
+            if self.on_applied is not None:
+                self.on_applied(
+                    g, idx, -1 if term is None else term, payload
+                )
+            return
+        super()._apply(g, idx, payload, now)
+
+    # -- leadership-gated submission --------------------------------------
+
+    def local_leader(self, g: int) -> Optional[int]:
+        """Owned slot currently leading ``g``, if any (remote slots are
+        alive=False locally, so leader_of only ever reports owned
+        ones)."""
+        return self.driver.leader_of(g)
+
+    def submit_local(self, g: int, op: KVOp) -> Optional[Ticket]:
+        """Submit iff an owned slot leads ``g``; None = wrong process
+        (the serving layer's ErrWrongLeader)."""
+        if self.local_leader(g) is None:
+            return None
+        return self.submit(g, op)
+
+    # -- pump hooks --------------------------------------------------------
+
+    def _post_pump(self) -> None:
+        self._flush_lost_leadership()

@@ -1,0 +1,508 @@
+"""The SHARDED stack over cross-process replica groups — per-server
+failure domains for shardkv, the TPU-native way (PyTorch port of
+``multiraft_tpu/engine/split_shard.py``; the wire forms are the
+reference's, so the two packages exchange slabs).
+
+:mod:`engine/shardkv` runs the whole sharded deployment (config RSM at
+engine group 0 + every replica group) inside ONE process; losing the
+process loses every peer of every group at once — durability, not
+availability.  The reference's shardkv spec is precisely about
+per-server crashes *within* replica groups while migration continues
+(reference: shardkv/config.go:204-262 per-group server matrices;
+shardkv/test_test.go:97-216 old-owner shutdown mid-migration).  This
+module restores that failure model: each participating process runs the
+SAME engine shapes and applies EVERY group's log, but owns only a
+subset of each group's P peer slots (:class:`~multiraft_tpu_torch.engine.
+split.SplitSpec`); consensus crosses processes via the per-tick slab
+exchange (:class:`~multiraft_tpu_torch.engine.split.SplitPeering`), so a
+process death loses only its owned slots and any group whose survivors
+hold a quorum keeps serving with every acknowledged write intact from
+replication alone — no WAL replay.
+
+Cross-process migration WITHOUT new RPCs — state-driven orchestration:
+
+Because every process applies every group's log (slab replication
+materializes all of them), the sim backend's pull/GC RPC handshakes
+collapse into observations of local applied state:
+
+* **pull** — the puller's leader-owner reads the source group's shard
+  from its OWN applied copy, gated on that copy having applied the
+  same config number (the ErrNotReady gate);
+* **Challenge-1 delete** — proposed into the source group's log by
+  whichever process owns the SOURCE group's leader, once it OBSERVES
+  (in its applied copy of the new owner's log) that the insert
+  committed (slot state GCING/SERVING at the same config);
+* **confirm (GCING→SERVING)** — proposed by the new owner's
+  leader-owner once it OBSERVES the source slot leave BEPULLING.
+
+Every step is driven from replicated state, not per-process callback
+chains, so it is idempotent and leader-failover-proof by construction:
+kill any minority owner mid-handshake and whichever process next owns
+the relevant leader re-derives exactly the missing step.  (The fleet
+backend's ``remote_fetch``/``remote_delete`` hooks solve the DIFFERENT
+problem of groups hosted by disjoint processes; here all groups are
+replicated everywhere and the hooks stay None.)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..services.shardctrler import NSHARDS, Config
+from ..services.shardkv import BEPULLING, GCING, PULLING, SERVING
+from .host import EngineDriver
+from .shardkv import (
+    BatchedShardKV,
+    ShardTicket,
+    _ClientOp,
+    _ConfigOp,
+    _ConfirmOp,
+    _CtrlOp,
+    _DeleteOp,
+    _InsertOp,
+    _ShardSlot,
+)
+from .split import SplitFrontierMixin
+
+__all__ = ["SplitShardKV"]
+
+
+@dataclasses.dataclass
+class _NoOp:
+    """Leader barrier entry.  Raft's current-term guard (reference:
+    raft/raft_append_entry.go:98) means a new leader cannot commit
+    prior-term entries until one of ITS OWN commits — a failover can
+    strand a committed-elsewhere suffix (a config change, an insert)
+    at the survivors forever if nothing new is proposed.  Client
+    groups unwedge via traffic; migration steps wait on *state* that
+    waits on the commit, so the split orchestration proposes this
+    no-op into any led group whose commit frontier stalls below its
+    last index (the classic leader no-op, stall-triggered rather than
+    per-election so steady state pays nothing)."""
+
+    ticket: Optional[ShardTicket] = None
+
+
+def _config_to_wire(c: Config) -> list:
+    return [c.num, list(c.shards),
+            [[gid, list(srv)] for gid, srv in sorted(c.groups.items())]]
+
+
+def _config_from_wire(w) -> Config:
+    num, shards, groups = w
+    return Config(num=num, shards=list(shards),
+                  groups={int(g): list(s) for g, s in groups})
+
+
+class SplitShardKV(SplitFrontierMixin, BatchedShardKV):
+    """:class:`BatchedShardKV` with its peer slots split over processes.
+
+    Construct one per process (same ``EngineConfig`` with
+    ``host_paced_compaction=True``, same gid layout) and attach a
+    :class:`~multiraft_tpu_torch.engine.split.SplitPeering` with the SAME
+    ``owners`` map everywhere.  Engine group 0 (the config RSM) splits
+    like any other group — admin ops land at whichever process owns its
+    leader (``submit`` gates; the serving clerk rotates).
+
+    Divergences from the single-process base (documented):
+
+    * ``get_fast`` is disabled — the sole-acker ReadIndex collapse is
+      single-process reasoning; reads ride the log (reference
+      semantics, SURVEY §3.4).
+    * Proposals are leadership-gated per engine group: only the process
+      owning a group's current leader orchestrates for it (config
+      advance, pulls, confirms) or accepts client ops; Challenge-1
+      deletes are proposed by the SOURCE group's leader-owner (see the
+      module docstring's state-driven handshake).
+    * The ctrler session id is per-process (``1000 + me``) so two
+      processes' admin proposals cannot collide in the dedup table.
+    """
+
+    # Pumps a led group's commit frontier may sit strictly below its
+    # last index without progress before a no-op barrier is proposed
+    # (see :class:`_NoOp`).  Normal replication clears the gap in 2-3
+    # pumps; only a post-failover stall reaches the threshold.
+    STALL_PUMPS = 24
+
+    def __init__(self, driver: EngineDriver) -> None:
+        super().__init__(driver)
+        self.retain_payloads = True
+        self.peering = None  # set by SplitPeering
+        self._flush_countdown = self.FLUSH_EVERY
+        # Stall tracking for the no-op barrier: g -> [commit, pumps].
+        self._stall: Dict[int, list] = {}
+        self._noop_tickets: Dict[int, ShardTicket] = {}
+        # Persistence hooks (parity with SplitKV's; a durable sharded
+        # split server wires these).
+        self.on_applied = None
+        self.on_snapshot_installed = None
+
+    # SplitPeering calls this after construction; pick the per-process
+    # ctrler identity up from the spec then.
+    def _attach_peering(self, peering) -> None:
+        self._ctrl_client_id = 1000 + peering.spec.me
+
+    # -- wire adapters (used by SplitPeering) ------------------------------
+
+    @staticmethod
+    def export_payload(payload) -> list:
+        op = payload
+        if isinstance(op, _ClientOp):
+            return ["c", op.op, op.key, op.value, op.client_id,
+                    op.command_id]
+        if isinstance(op, _CtrlOp):
+            arg = op.arg
+            if op.kind == "join":
+                arg = [[gid, list(s)] for gid, s in sorted(arg.items())]
+            elif op.kind == "move":
+                arg = list(arg)
+            else:
+                arg = list(arg)
+            return ["t", op.kind, arg, op.client_id, op.command_id]
+        if isinstance(op, _ConfigOp):
+            return ["f", _config_to_wire(op.config)]
+        if isinstance(op, _InsertOp):
+            return ["i", op.config_num, op.shard, dict(op.data),
+                    {int(k): int(v) for k, v in op.latest.items()}]
+        if isinstance(op, _DeleteOp):
+            return ["d", op.config_num, op.shard]
+        if isinstance(op, _ConfirmOp):
+            return ["m", op.config_num, op.shard]
+        if isinstance(op, _NoOp):
+            return ["n"]
+        raise TypeError(f"unknown shardkv payload {type(op).__name__}")
+
+    @staticmethod
+    def import_payload(wire):
+        tag = wire[0]
+        if tag == "c":
+            _, op, key, value, cid, cmd = wire
+            return _ClientOp(op=op, key=key, value=value, client_id=cid,
+                             command_id=cmd, ticket=None)
+        if tag == "t":
+            _, kind, arg, cid, cmd = wire
+            if kind == "join":
+                arg = {int(g): list(s) for g, s in arg}
+            elif kind == "move":
+                arg = tuple(arg)
+            else:
+                arg = list(arg)
+            return _CtrlOp(kind=kind, arg=arg, client_id=cid,
+                           command_id=cmd, ticket=None)
+        if tag == "f":
+            return _ConfigOp(config=_config_from_wire(wire[1]), ticket=None)
+        if tag == "i":
+            _, num, shard, data, latest = wire
+            return _InsertOp(config_num=num, shard=shard, data=dict(data),
+                             latest={int(k): int(v)
+                                     for k, v in latest.items()},
+                             ticket=None)
+        if tag == "d":
+            return _DeleteOp(config_num=wire[1], shard=wire[2], ticket=None)
+        if tag == "m":
+            return _ConfirmOp(config_num=wire[1], shard=wire[2], ticket=None)
+        if tag == "n":
+            return _NoOp(ticket=None)
+        raise TypeError(f"unknown shardkv wire tag {tag!r}")
+
+    # -- group snapshots (InstallSnapshot slab blobs) ----------------------
+
+    def snapshot_group(self, g: int) -> Tuple[int, dict]:
+        """Applied state of ENGINE group ``g`` for an InstallSnapshot
+        slab: the ctrler history for group 0, the replica's shard
+        slots otherwise (pending tickets are per-process volatile state
+        and never travel)."""
+        if g == 0:
+            return self.applied_upto[0], {
+                "kind": "ctrl",
+                "configs": [_config_to_wire(c) for c in self.configs],
+                "latest": {int(k): int(v)
+                           for k, v in self._ctrl_latest.items()},
+            }
+        rep = self.reps[self._l2g[g]]
+        return self.applied_upto[g], {
+            "kind": "rep",
+            "cur": _config_to_wire(rep.cur),
+            "prev": _config_to_wire(rep.prev),
+            "shards": {
+                int(s): [sl.state, dict(sl.data),
+                         {int(k): int(v) for k, v in sl.latest.items()}]
+                for s, sl in rep.shards.items()
+            },
+        }
+
+    # persist_group/restore_group/replay_apply: the service adapter
+    # trio SplitPersistence drives (shared contract with SplitKV) —
+    # the durable sharded split reuses the same snapshot + redo-log
+    # machinery the plain-KV split peers have.
+    def persist_group(self, g: int) -> Tuple[int, dict]:
+        return self.snapshot_group(g)
+
+    def replay_apply(self, g: int, idx: int, payload) -> None:
+        """Redo one recovered applied entry through the SAME dispatch
+        the live path uses (dedup tables and config/state gates make
+        anything already inside the snapshot a no-op), with the
+        durability hooks suppressed so replay does not re-log its own
+        records."""
+        if isinstance(payload, _NoOp):
+            return
+        hooks = (self.on_applied, self.on_insert, self.on_delete,
+                 self.on_confirm, self.on_write, self.on_ctrl)
+        (self.on_applied, self.on_insert, self.on_delete,
+         self.on_confirm, self.on_write, self.on_ctrl) = (None,) * 6
+        try:
+            BatchedShardKV._apply(self, g, idx, payload, 0)
+        finally:
+            (self.on_applied, self.on_insert, self.on_delete,
+             self.on_confirm, self.on_write, self.on_ctrl) = hooks
+
+    def install_group_snapshot(self, g: int, upto: int, blob: dict) -> None:
+        if upto <= self.applied_upto[g]:
+            return  # stale slab: we are already past it
+        self.restore_group(g, upto, blob)
+        if self.on_snapshot_installed is not None:
+            self.on_snapshot_installed(g)
+
+    def restore_group(self, g: int, upto: int, blob: dict) -> None:
+        if blob["kind"] == "ctrl":
+            self.configs = [_config_from_wire(w) for w in blob["configs"]]
+            self._ctrl_latest = {int(k): int(v)
+                                 for k, v in blob["latest"].items()}
+            self._route = torch.tensor(
+                self.configs[-1].shards, dtype=torch.int32,
+                device=self.driver.device,
+            )
+        else:
+            rep = self.reps[self._l2g[g]]
+            rep.cur = _config_from_wire(blob["cur"])
+            rep.prev = _config_from_wire(blob["prev"])
+            rep.shards = {
+                int(s): _ShardSlot(
+                    state=st, data=dict(data),
+                    latest={int(k): int(v) for k, v in lat.items()},
+                )
+                for s, (st, data, lat) in blob["shards"].items()
+            }
+            rep.pending_config = None
+            rep.pending_insert.clear()
+            rep.pending_delete.clear()
+            rep.pending_confirm.clear()
+        self.applied_upto[g] = upto
+
+    # -- apply: term-arbitrated payload choice -----------------------------
+
+    def _ticket_of(self, payload):
+        return getattr(payload, "ticket", None)
+
+    def _apply(self, g: int, idx: int, payload: Any, now: int) -> None:
+        if self.peering is not None and g in self.peering.spec.owners:
+            payload, term = self.peering.resolve_with_term(g, idx, payload)
+            if isinstance(payload, _NoOp):
+                self._resolve(payload, now)
+            else:
+                super()._apply(g, idx, payload, now)
+            if self.on_applied is not None:
+                self.on_applied(
+                    g, idx, -1 if term is None else term, payload
+                )
+            return
+        if isinstance(payload, _NoOp):
+            self._resolve(payload, now)
+            return
+        super()._apply(g, idx, payload, now)
+
+    # -- leadership-gated client surface -----------------------------------
+
+    def local_leader(self, gid: int) -> Optional[int]:
+        """Owned slot currently leading ``gid``'s engine group, if any
+        (remote slots are alive=False locally)."""
+        return self.driver.leader_of(self._g2l[gid])
+
+    def submit_local(self, gid: int, op: str, key: str, value: str = "",
+                     client_id: int = 0,
+                     command_id: int = 0) -> Optional[ShardTicket]:
+        """Submit iff an owned slot leads ``gid``; None = wrong process
+        (the serving layer's ErrWrongLeader)."""
+        if self.local_leader(gid) is None:
+            return None
+        return self.submit(gid, op, key, value, client_id, command_id)
+
+    def ctrl_local(self, kind: str, arg: Any,
+                   command_id: Optional[int] = None,
+                   client_id: Optional[int] = None
+                   ) -> Optional[ShardTicket]:
+        """Admin op iff an owned slot leads the config RSM (engine
+        group 0); None = wrong process.  Callers that may retry the
+        same op AT ANOTHER PROCESS must pass their own ``client_id``
+        (+ a stable ``command_id``): the per-process default session
+        would let two issuers' independent command numbering collide in
+        the dedup table and silently swallow an op as a "duplicate"."""
+        if self.driver.leader_of(0) is None:
+            return None
+        return self._ctrl(kind, arg, command_id, client_id=client_id)
+
+    def get_fast(self, key: str) -> ShardTicket:
+        raise NotImplementedError(
+            "get_fast is single-process reasoning (sole-acker ReadIndex); "
+            "split deployments ride reads through the log"
+        )
+
+    # -- pump hooks --------------------------------------------------------
+
+    def _post_pump(self) -> None:
+        if self._orchestrate_enabled:
+            self._orchestrate()
+        self._flush_lost_leadership()
+
+    # -- split-aware orchestration ----------------------------------------
+
+    def _orchestrate(self) -> None:
+        """Leadership-gated, state-driven form of the base sweep (see
+        module docstring).  Each process proposes only into logs whose
+        leader it currently owns; the Challenge-1 handshake is derived
+        from replicated state on both sides, so any step a dead process
+        never took is re-derived by the next leader owner."""
+        if self.peering is None:
+            return super()._orchestrate()
+        # ONE device-state snapshot per sweep: per-gid local_leader()
+        # calls would each materialize the full state (np_state) — at a
+        # 2 ms pump cadence that is the dominant host cost.
+        st = self.driver.np_state()
+        lead = (st["role"] == 2) & st["alive"]
+        led_term = np.where(lead, st["term"], -1)
+        led_slot = np.where(lead.any(axis=1), led_term.argmax(axis=1), -1)
+        self._noop_barriers(st, led_slot)
+        latest = self.configs[-1]
+        for gid in self.gids:
+            rep = self.reps[gid]
+            if led_slot[self._g2l[gid]] < 0:
+                continue  # this group's proposals belong elsewhere
+            # (a) config advance — in order, never mid-migration
+            # (mirror of shardkv._orchestrate step (a)).
+            if (
+                latest.num > rep.cur.num
+                and not self._live(rep.pending_config)
+                and all(sh.state == SERVING for sh in rep.shards.values())
+            ):
+                nxt = self.configs[rep.cur.num + 1]  # never mutated
+                t = ShardTicket(group=gid)
+                rep.pending_config = t
+                self.driver.start(
+                    self._g2l[gid], _ConfigOp(config=nxt, ticket=t)
+                )
+            for s in range(NSHARDS):
+                sh = rep.shards[s]
+                # (b) pull: from the LOCAL applied copy of the source
+                # group (every process materializes all groups), gated
+                # on that copy having applied the same config — the
+                # ErrNotReady handshake as an applied-frontier check.
+                if sh.state == PULLING and not self._live(
+                    rep.pending_insert.get(s)
+                ):
+                    if self.migration_paused:
+                        continue
+                    src = self.reps.get(rep.prev.shards[s])
+                    if src is None or src.cur.num < rep.cur.num:
+                        continue  # our copy of the source lags; retry
+                    t = ShardTicket(group=gid)
+                    rep.pending_insert[s] = t
+                    self.driver.start(
+                        self._g2l[gid],
+                        _InsertOp(
+                            config_num=rep.cur.num,
+                            shard=s,
+                            data=dict(src.shards[s].data),
+                            latest=dict(src.shards[s].latest),
+                            ticket=t,
+                        ),
+                    )
+                # (c2) confirm: the delete's effect is OBSERVED in our
+                # applied copy of the source group — its slot left
+                # BEPULLING at our config (deleted, or re-owned by a
+                # later config).  Prev owner 0 never happens (PULLING
+                # requires a nonzero previous owner).
+                elif sh.state == GCING and not self._live(
+                    rep.pending_confirm.get(s)
+                ):
+                    if self.migration_paused:
+                        continue
+                    src = self.reps.get(rep.prev.shards[s])
+                    deleted = (
+                        src is not None
+                        and src.cur.num >= rep.cur.num
+                        and (src.cur.num > rep.cur.num
+                             or src.shards[s].state != BEPULLING)
+                    )
+                    if not deleted:
+                        continue  # source leader-owner will delete
+                    t = ShardTicket(group=gid)
+                    rep.pending_confirm[s] = t
+                    self.driver.start(
+                        self._g2l[gid],
+                        _ConfirmOp(config_num=rep.cur.num, shard=s,
+                                   ticket=t),
+                    )
+        # (c1) Challenge-1 deletes: proposed into logs WE lead, on
+        # behalf of pullers observed (in replicated state) to have the
+        # data.  Delete-after-insert safety: GCING/SERVING at the same
+        # config proves the insert committed — until then the source's
+        # BEPULLING copy may be the only one.
+        for src_gid in self.gids:
+            if led_slot[self._g2l[src_gid]] < 0 or self.migration_paused:
+                continue
+            src = self.reps[src_gid]
+            for s in range(NSHARDS):
+                if src.shards[s].state != BEPULLING:
+                    continue
+                new_gid = src.cur.shards[s]
+                new_rep = self.reps.get(new_gid)
+                if new_rep is None:
+                    continue
+                has_data = (
+                    new_rep.cur.num >= src.cur.num
+                    and (new_rep.cur.num > src.cur.num
+                         or new_rep.shards[s].state in (GCING, SERVING))
+                )
+                if has_data and not self._live(src.pending_delete.get(s)):
+                    t = ShardTicket(group=src_gid)
+                    src.pending_delete[s] = t
+                    self.driver.start(
+                        self._g2l[src_gid],
+                        _DeleteOp(config_num=src.cur.num, shard=s,
+                                  ticket=t),
+                    )
+
+    def _noop_barriers(self, st, led_slot) -> None:
+        """Detect led groups whose commit frontier has stalled strictly
+        below their last log index and propose a :class:`_NoOp` barrier
+        (the leader no-op that lets the current-term guard commit the
+        inherited suffix after a failover).  ``st``/``led_slot`` come
+        from the caller's single per-sweep snapshot."""
+        drv = self.driver
+        for g in range(drv.cfg.G):
+            p = int(led_slot[g])
+            if p < 0:
+                self._stall.pop(g, None)
+                continue
+            commit = int(st["commit"][g, p])
+            last = int(st["base"][g, p] + st["log_len"][g, p])
+            if commit >= last:
+                self._stall.pop(g, None)
+                continue
+            rec = self._stall.setdefault(g, [commit, 0])
+            if rec[0] != commit:
+                rec[0], rec[1] = commit, 0
+                continue
+            rec[1] += 1
+            if rec[1] < self.STALL_PUMPS or self._live(
+                self._noop_tickets.get(g)
+            ):
+                continue
+            t = ShardTicket(group=g)
+            self._noop_tickets[g] = t
+            rec[1] = 0
+            drv.start(g, _NoOp(ticket=t))

@@ -179,3 +179,55 @@ def test_checkpoints_cross_between_the_card_and_the_cpu(card, tmp_path):
         d.step(40)
     for d in drivers[1:]:
         _assert_same_drivers(on_card, d)
+
+
+def test_sharded_service_on_the_card_equals_the_cpu(card):
+    """The sharded script (join, writes, leave, move) at G=16 with the
+    kernels on the card and their plain versions on the CPU: every
+    plane and the whole service state equal after every pump, and
+    every ticket resolved the same way."""
+    from chip_smoke import _sharded_script
+    from multiraft_tpu_torch.engine.shardkv import BatchedShardKV
+    from torch_parity import PumpRecorder, canon
+
+    cfg = EngineConfig(G=16, P=3, L=64, E=8, INGEST=8, use_kernels=True)
+    skvs = []
+    for dev in (card, "cpu"):
+        d = EngineDriver(cfg, seed=13, device=dev)
+        assert d.run_until_quiet_leaders(1000)
+        skvs.append(BatchedShardKV(d))
+    rec = PumpRecorder(*skvs)
+    kernels.reset_launches()
+    tickets = [[], []]
+    for skv, ts in zip(skvs, tickets):
+        _sharded_script(skv, ts, lambda tag: None)
+    assert min(kernels.LAUNCHES.values()) > 0
+    assert rec.check("sharded") > 0
+    assert canon(tickets[0]) == canon(tickets[1])
+    assert skvs[0].configs[-1].num == 3 and all(t.done for t in tickets[0])
+
+
+def test_split_pair_on_the_card_equals_the_cpu(card):
+    """A SplitShardKV pair at G=4 (owners [0, 1, 1]) on the card and on
+    the CPU: join, writes, join, migration; each side equal to its
+    counterpart after every pump."""
+    from chip_smoke import _split_sides, _SplitRig
+    from multiraft_tpu_torch.engine.split_shard import SplitShardKV
+    from torch_parity import PumpRecorder
+
+    cfg = EngineConfig(G=4, P=3, L=64, E=8, INGEST=8, use_kernels=True,
+                       host_paced_compaction=True)
+    owners = {g: [0, 1, 1] for g in range(cfg.G)}
+    rigs = [_SplitRig(_split_sides(SplitShardKV, dev, owners, cfg, delay_on=1))
+            for dev in (card, "cpu")]
+    recs = [PumpRecorder(rigs[0].sides[i][0], rigs[1].sides[i][0]) for i in (0, 1)]
+    for rig in rigs:
+        rig.settle(cfg.G)
+        rig.admin("join", {1: ["p1"]})
+        for k in ("akey", "bkey", "ckey", "dkey"):
+            rig.client_op("Put", k, f"v-{k}")
+        rig.admin("join", {2: ["p2"]})
+        rig.wait(lambda: rig.migrated([1, 2]), 3000, "migration")
+        assert rig.client_op("Get", "ckey") == "v-ckey"
+    for i, rec in enumerate(recs):
+        assert rec.check(("split side", i)) > 0
