@@ -67,6 +67,26 @@ and prints no result line):
    ``*_gid`` membership facades replace a dead voter at G=64 x P=5 on
    the plain path, each leg twice.
 
+7. The durable engine KV server, served from the card: ``python -m
+   multiraft_tpu_torch serve-kv --groups 10000`` as a child process at
+   the headline widths the reference's serve knobs set (L=192, E=48,
+   INGEST=48; P=3; the plain tick, as the reference serves it), with its
+   data directory in ``build/smoke/serve``:
+   (a) seconds to ``ready <port>``, and the card memory the server holds;
+   (b) 8 port ``EngineClerk`` threads of 40 Put/Append/Get ops on
+   single-writer keys, one ``PipelinedClerk`` frame of 1,024 ops and 16
+   ``FirehoseClerk`` frames of 4,096 rows, every answer held against a
+   dict model; op latency p50/p99, ops/s, firehose rows acknowledged per
+   second, and the server's ``pump.wall_s``/``pump.cpu_s`` percentiles
+   from a raw ``Obs.hist`` call;
+   (c) ``kill -9`` in the middle of a firehose, a restart on the same
+   directory (seconds to ``ready``: checkpoint restore plus WAL replay);
+   every acknowledged write reads back, every acknowledged append tag
+   exactly once;
+   (d) SIGTERM (exit 0, final checkpoint), a restart that replays
+   nothing, everything read back again;
+   (e) one ``kv put/append/get`` round trip through the command line.
+
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1566,6 +1586,442 @@ def phase_sharded(card: str, kernels) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the durable engine KV server, served from the card
+# ---------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# The reference's serve knobs at the headline widths (P=3 is fixed by
+# serve_engine_kv; HB_TICKS has no serve knob and keeps its default).
+SERVE_ENV = {"MULTIRAFT_SERVE_L": "192", "MULTIRAFT_SERVE_E": "48",
+             "MULTIRAFT_SERVE_INGEST": "48"}
+FH_ROWS = 4096
+
+
+def _pct(xs, q: float) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs, dtype=float), q))
+
+
+class _Server:
+    """``python -m multiraft_tpu_torch serve-kv`` as a child process on
+    the card; its stderr goes to ``build/smoke/serve.log``."""
+
+    def __init__(self, data_dir: str, groups: int):
+        self.data_dir, self.groups = data_dir, groups
+        self.proc = None
+        self.port = None
+        self._log = None
+
+    def start(self, timeout: float = 240.0) -> float:
+        """Start and wait for ``ready <port>``; returns the seconds."""
+        import select
+
+        env = dict(os.environ, **SERVE_ENV)
+        env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+        self._log = open(os.path.join(SCRATCH, "serve.log"), "ab")
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "multiraft_tpu_torch", "serve-kv",
+             "--groups", str(self.groups), "--data-dir", self.data_dir],
+            stdout=subprocess.PIPE, stderr=self._log, env=env, cwd=ROOT,
+        )
+        buf = b""
+        while b"\n" not in buf:
+            left = timeout - (time.perf_counter() - t0)
+            if left <= 0 or self.proc.poll() is not None:
+                raise AssertionError(
+                    f"serve-kv: no readiness line (exit {self.proc.poll()}, "
+                    f"{buf!r}); see build/smoke/serve.log")
+            ready, _, _ = select.select([self.proc.stdout], [], [], min(left, 1.0))
+            if ready:
+                chunk = os.read(self.proc.stdout.fileno(), 256)
+                if not chunk:
+                    continue
+                buf += chunk
+        line = buf.split(b"\n", 1)[0].decode()
+        if not line.startswith("ready "):
+            raise AssertionError(f"serve-kv: bad readiness line {line!r}")
+        self.port = int(line.split()[1])
+        return time.perf_counter() - t0
+
+    def kill9(self) -> None:
+        self.proc.kill()
+        self.proc.wait(timeout=60)
+        self._close()
+
+    def sigterm(self) -> None:
+        """SIGTERM; the server must write its final checkpoint and exit 0."""
+        import signal
+
+        self.proc.send_signal(signal.SIGTERM)
+        rc = self.proc.wait(timeout=240)
+        self._close()
+        if rc != 0:
+            with open(os.path.join(SCRATCH, "serve.log"), "rb") as f:
+                tail = f.read()[-3000:].decode(errors="replace")
+            raise AssertionError(f"serve-kv: SIGTERM exit code {rc}; log tail:\n{tail}")
+
+    def stop(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+        self._close()
+
+    def _close(self) -> None:
+        if self.proc is not None and self.proc.stdout is not None:
+            self.proc.stdout.close()
+        if self._log is not None:
+            self._log.close()
+            self._log = None
+
+
+class _Client:
+    """A port clerk of its own RPC node, blocking."""
+
+    def __init__(self, port: int, cls_name: str = "EngineClerk"):
+        from multiraft_tpu_torch.distributed import engine_clerks
+        from multiraft_tpu_torch.distributed.tcp import RpcNode
+
+        self.node = RpcNode()
+        self.end = self.node.client_end("127.0.0.1", port)
+        self.ck = getattr(engine_clerks, cls_name)(self.node.sched, self.end)
+
+    def run(self, gen, timeout: float = 120.0):
+        from multiraft_tpu_torch.sim.scheduler import TIMEOUT
+
+        out = self.node.sched.wait(self.node.sched.spawn(gen), timeout)
+        if out is TIMEOUT:
+            raise TimeoutError("clerk call timed out")
+        return out
+
+    def call(self, meth: str, args=None, timeout: float = 30.0):
+        from multiraft_tpu_torch.sim.scheduler import TIMEOUT
+
+        out = self.node.sched.wait(self.end.call(meth, args), timeout)
+        if out is None or out is TIMEOUT:
+            raise AssertionError(f"{meth}: no answer")
+        return out
+
+    def close(self) -> None:
+        self.node.close()
+
+
+def _gpu_mib(pid: int) -> tuple:
+    """(MiB the card says ``pid`` holds or None, MiB used on the card)."""
+    apps = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout
+    held = None
+    for row in apps.strip().splitlines():
+        p, mib = (x.strip() for x in row.split(","))
+        if p.isdigit() and int(p) == pid:
+            held = float(mib)
+    used = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    return held, float(used)
+
+
+def _readback(port: int, model: dict, tags: dict) -> int:
+    """Every key of ``model`` reads back its value through one firehose
+    Get frame per 4,096 keys; for each key of ``tags`` (key -> (acked
+    tags, unacked tags)), each acked tag is there exactly once and each
+    unacked one at most once.  Returns the keys read."""
+    keys = sorted(set(model) | set(tags))
+    c = _Client(port, "FirehoseClerk")
+    try:
+        got = {}
+        for s in range(0, len(keys), FH_ROWS):
+            part = keys[s: s + FH_ROWS]
+            vals = c.run(c.ck.run_batch([("Get", k, "") for k in part]))
+            got.update(zip(part, vals))
+    finally:
+        c.close()
+    for k, want in model.items():
+        if got[k] != want:
+            raise AssertionError(f"read back {k}: {got[k]!r} != {want!r}")
+    for k, (acked, unacked) in tags.items():
+        for t in acked:
+            if got[k].count(t) != 1:
+                raise AssertionError(f"{k}: acked {t} appears {got[k].count(t)}x")
+        for t in unacked:
+            if got[k].count(t) > 1:
+                raise AssertionError(f"{k}: unacked {t} applied twice")
+    return len(keys)
+
+
+def _server_metrics(port: int) -> dict:
+    c = _Client(port)
+    try:
+        return c.call("Obs.snapshot")["metrics"]
+    finally:
+        c.close()
+
+
+def serve_traffic(port: int, card: str, model: dict) -> dict:
+    """7(b): clerk threads, one batch frame, a firehose; every answer held
+    against ``model`` (a dict of every acknowledged write)."""
+    import threading
+
+    from multiraft_tpu_torch.utils.metrics import Hist
+
+    out = {}
+    lat = {"Put": [], "Append": [], "Get": []}
+    errors = []
+    lock = threading.Lock()
+
+    def worker(w: int):
+        c = _Client(port)
+        mine = {}
+        try:
+            for j in range(40):
+                key = f"w{w}-k{j % 4}"
+                kind = ("Put", "Append", "Append", "Get")[j % 4]
+                t0 = time.perf_counter()
+                if kind == "Get":
+                    got = c.run(c.ck.get(key))
+                    if got != mine.get(key, ""):
+                        raise AssertionError(f"{key}: {got!r} != {mine.get(key, '')!r}")
+                elif kind == "Put":
+                    c.run(c.ck.put(key, f"<{w}.{j}>"))
+                    mine[key] = f"<{w}.{j}>"
+                else:
+                    c.run(c.ck.append(key, f"({w}.{j})"))
+                    mine[key] = mine.get(key, "") + f"({w}.{j})"
+                with lock:
+                    lat[kind].append(time.perf_counter() - t0)
+            with lock:
+                model.update(mine)
+        except BaseException as e:  # re-raised on the main thread
+            errors.append(e)
+        finally:
+            c.close()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(w,)) for w in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    every = [x for xs in lat.values() for x in xs]
+    out["clerks"] = dict(
+        ops=len(every), s=wall, ops_per_s=len(every) / wall,
+        p50_ms=_pct(every, 50) * 1e3, p99_ms=_pct(every, 99) * 1e3,
+        write_p50_ms=_pct(lat["Put"] + lat["Append"], 50) * 1e3,
+        write_p99_ms=_pct(lat["Put"] + lat["Append"], 99) * 1e3,
+        get_p50_ms=_pct(lat["Get"], 50) * 1e3,
+    )
+    log(f"serve 7(b): 8 clerks x 40 ops in {wall:.2f} s: {json.dumps(out['clerks'])} [{card}]")
+
+    # One pipelined frame of MAX_BATCH ops; its Gets see its own writes.
+    ops, want = [], {}
+    for i in range(1000):
+        key = f"p{i % 97}"
+        if i % 7 == 0:
+            ops.append(("Put", key, f"<{i}>"))
+            want[key] = f"<{i}>"
+        else:
+            ops.append(("Append", key, f"<{i}>"))
+            want[key] = want.get(key, "") + f"<{i}>"
+    gets = sorted(want)[:24]
+    ops += [("Get", k, "") for k in gets]
+    c = _Client(port, "PipelinedClerk")
+    try:
+        t0 = time.perf_counter()
+        vals = c.run(c.ck.run_batch(ops))
+        out["batch_frame_s"] = time.perf_counter() - t0
+    finally:
+        c.close()
+    if vals[-24:] != [want[k] for k in gets]:
+        raise AssertionError("batch frame: a Get missed its own frame's writes")
+    model.update(want)
+    log(f"serve 7(b): one batch frame of {len(ops)} ops in "
+        f"{out['batch_frame_s']:.3f} s [{card}]")
+
+    # 16 firehose frames of 4,096 rows.
+    c = _Client(port, "FirehoseClerk")
+    try:
+        frame_s = []
+        t0 = time.perf_counter()
+        for f in range(16):
+            rows = []
+            for i in range(FH_ROWS):
+                key = f"f{(f * FH_ROWS + i) % 20011}"
+                if i % 8 == 0:
+                    rows.append(("Put", key, f"{f}.{i};"))
+                    model[key] = f"{f}.{i};"
+                else:
+                    rows.append(("Append", key, f"{f}.{i};"))
+                    model[key] = model.get(key, "") + f"{f}.{i};"
+            t1 = time.perf_counter()
+            c.run(c.ck.run_batch(rows))
+            frame_s.append(time.perf_counter() - t1)
+        wall = time.perf_counter() - t0
+        hist = c.call("Obs.hist")
+    finally:
+        c.close()
+    out["firehose"] = dict(
+        frames=16, rows=16 * FH_ROWS, s=wall,
+        rows_acked_per_s=16 * FH_ROWS / wall,
+        frame_p50_ms=_pct(frame_s, 50) * 1e3, frame_max_ms=max(frame_s) * 1e3,
+    )
+    log(f"serve 7(b): firehose {json.dumps(out['firehose'])} [{card}]")
+    pump = {}
+    for name in ("pump.wall_s", "pump.cpu_s"):
+        h = Hist.from_dump(hist["hists"][name])
+        pump[name] = {f"p{q}_ms": h.percentile(q / 100) * 1e3 for q in (50, 90, 99)}
+        pump[name]["count"] = h.count
+    out["pump"] = pump
+    log(f"serve 7(b): server pump (Obs.hist) {json.dumps(pump)} [{card}]")
+    return out
+
+
+def phase_serve(card: str) -> dict:
+    """Phase 7: ``serve-kv`` on the card at the headline widths, driven
+    by the port's clerks; kill -9 and SIGTERM restarts on the same
+    directory; the ``kv`` command line."""
+    import shutil
+    import threading
+
+    G = HEADLINE["G"]
+    data = os.path.join(SCRATCH, "serve")
+    shutil.rmtree(data, ignore_errors=True)
+    os.makedirs(SCRATCH, exist_ok=True)
+    out = {}
+    model = {}  # every acknowledged write: key -> value
+    srv = _Server(data, G)
+    try:
+        _, used0 = _gpu_mib(-1)
+        out["ready_s"] = srv.start()
+        held, used1 = _gpu_mib(srv.proc.pid)
+        if held is not None:
+            if held <= 0:
+                raise AssertionError(f"serve-kv pid {srv.proc.pid} holds no card memory")
+            how = f"pid {srv.proc.pid} holds {held:.0f} MiB"
+        else:
+            # The card lists pids of another pid namespace: read the
+            # card's used memory before and after the server came up.
+            if used1 - used0 < 100:
+                raise AssertionError(
+                    f"serve-kv: card memory {used0:.0f} -> {used1:.0f} MiB")
+            how = (f"pid not listed (another pid namespace); card memory "
+                   f"{used0:.0f} -> {used1:.0f} MiB")
+        out["card_mib"] = held if held is not None else used1 - used0
+        log(f"serve 7(a): ready in {out['ready_s']:.2f} s at G={G}; {how} [{card}]")
+
+        out.update(serve_traffic(srv.port, card, model))
+        m = _server_metrics(srv.port)
+        log(f"serve 7(b): server counters kv.writes {m.get('kv.writes')} "
+            f"firehose.rows {m.get('firehose.rows')} wal.fsyncs {m.get('wal.fsyncs')} "
+            f"ckpt.saves {m.get('ckpt.saves')} pump.count {m.get('pump.count')}")
+
+        # 7(c): kill -9 in the middle of a firehose.
+        tags = {}  # key -> (acked tags, unacked tags)
+        acked_frames = []
+        sent = []
+        crash_err = []
+
+        def firehose():
+            c = _Client(srv.port, "FirehoseClerk")
+            try:
+                for f in range(12):
+                    rows = [("Append", f"c{(f * 997 + i) % 9973}", f"[{f}.{i}]")
+                            for i in range(FH_ROWS)]
+                    sent.append(rows)
+                    c.run(c.ck.run_batch(rows, deadline_s=8.0), timeout=12.0)
+                    acked_frames.append(f)
+            except (TimeoutError, AssertionError, OSError):
+                pass  # the server died under the frame in flight
+            except BaseException as e:
+                crash_err.append(e)
+            finally:
+                c.close()
+
+        th = threading.Thread(target=firehose)
+        th.start()
+        t0 = time.perf_counter()
+        while len(acked_frames) < 3 and time.perf_counter() - t0 < 120:
+            time.sleep(0.005)
+        if len(acked_frames) < 3:
+            raise AssertionError("7(c): the firehose acknowledged under 3 frames")
+        time.sleep(0.05)  # the next frame is in flight
+        srv.kill9()
+        out["restart_after_kill_s"] = srv.start()
+        th.join(timeout=60)
+        if th.is_alive() or crash_err:
+            raise AssertionError(f"7(c): firehose thread {crash_err}")
+        # The thread stops at the frame the kill cut: every frame before
+        # it was acknowledged.
+        n_acked = len(acked_frames)
+        for f, rows in enumerate(sent):
+            for _, key, tag in rows:
+                acked, unacked = tags.setdefault(key, ([], []))
+                (acked if f < n_acked else unacked).append(tag)
+        m = _server_metrics(srv.port)
+        out["replayed_records"] = m.get("wal.replayed_records", 0)
+        keys = _readback(srv.port, model, tags)
+        log(f"serve 7(c): kill -9 after {n_acked} acknowledged frames "
+            f"({len(sent)} sent); ready again in {out['restart_after_kill_s']:.2f} s, "
+            f"{out['replayed_records']} WAL records replayed; {keys} keys read "
+            f"back, every acknowledged write there, each acked tag once [{card}]")
+        # Fold the crash keys into the model as they now read.
+        c = _Client(srv.port, "FirehoseClerk")
+        try:
+            ks = sorted(tags)
+            for s in range(0, len(ks), FH_ROWS):
+                part = ks[s: s + FH_ROWS]
+                model.update(zip(part, c.run(c.ck.run_batch(
+                    [("Get", k, "") for k in part]))))
+        finally:
+            c.close()
+
+        # 7(d): SIGTERM writes the final checkpoint; the restart replays nothing.
+        srv.sigterm()
+        out["restart_after_sigterm_s"] = srv.start()
+        m = _server_metrics(srv.port)
+        if m.get("wal.replayed_records", 0) != 0 or m.get("engine.restores", 0) != 1:
+            raise AssertionError(f"7(d): replayed {m.get('wal.replayed_records')}, "
+                                 f"restores {m.get('engine.restores')}")
+        keys = _readback(srv.port, model, {})
+        log(f"serve 7(d): SIGTERM exit 0; ready again in "
+            f"{out['restart_after_sigterm_s']:.2f} s from the checkpoint alone "
+            f"(0 WAL records replayed); {keys} keys read back [{card}]")
+
+        # 7(e): the command line.
+        addr = f"127.0.0.1:{srv.port}"
+        env = dict(os.environ)
+        env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+        cli_s = []
+        for args in (("put", "smoke-cli", "hello"), ("append", "smoke-cli", " world"),
+                     ("get", "smoke-cli")):
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "multiraft_tpu_torch", "kv", *args,
+                 "--addr", addr],
+                capture_output=True, text=True, env=env, cwd=ROOT, timeout=120,
+            )
+            cli_s.append(time.perf_counter() - t0)
+            if r.returncode != 0:
+                raise AssertionError(f"kv {args}: exit {r.returncode}: {r.stderr}")
+        if r.stdout.strip() != "hello world":
+            raise AssertionError(f"kv get: {r.stdout!r}")
+        out["cli_s"] = cli_s
+        log(f"serve 7(e): kv put/append/get round trip, "
+            f"{', '.join(f'{s:.2f}' for s in cli_s)} s [{card}]")
+        srv.sigterm()
+    finally:
+        srv.stop()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1594,6 +2050,16 @@ def main() -> int:
     phase_whole_engine()
     ops = phase_operations(card, kernels)
     sharded = phase_sharded(card, kernels)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    served = phase_serve(card)
+    served["phase_s"] = time.perf_counter() - t0
+    # The server is a child process, and it builds its engine with the
+    # kernels off, as the reference's server does (use_pallas off): this
+    # process launches nothing during the phase.
+    if max(kernels.LAUNCHES.values()) > 0:
+        raise AssertionError(f"serve: launches in this process {kernels.LAUNCHES}")
+    log(f"serve: phase 7 in {served['phase_s']:.2f} s [{card}]")
 
     line = []
     for name in ("quorum_commit", "vote_tally"):
@@ -1623,6 +2089,7 @@ def main() -> int:
     log(f"firehose: {json.dumps(fh)}")
     log(f"operations: {json.dumps(ops)}")
     log(f"sharded engine: {json.dumps(sharded)} [{card}]")
+    log(f"served: {json.dumps(served)} [{card}]")
     log(f"total: {time.perf_counter() - t_start:.1f} s [{card}]")
     log(json.dumps({"kernels": line}))
     print(json.dumps({

@@ -29,7 +29,7 @@ import os
 import pickle
 import time
 from collections import defaultdict
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -996,8 +996,12 @@ class EngineDriver:
 
     # -- inspection (host readbacks) ------------------------------------
 
-    def np_state(self) -> Dict[str, np.ndarray]:
-        return {k: _np(v) for k, v in self.state._asdict().items()}
+    def np_state(
+        self, fields: Optional[Sequence[str]] = None
+    ) -> Dict[str, np.ndarray]:
+        """The state's planes on the host (``fields``: only those)."""
+        st = self.state._asdict()
+        return {k: _np(st[k]) for k in (st if fields is None else fields)}
 
     def leaders_per_group(self) -> np.ndarray:
         st = self.np_state()

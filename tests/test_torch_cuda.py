@@ -231,3 +231,40 @@ def test_split_pair_on_the_card_equals_the_cpu(card):
         assert rig.client_op("Get", "ckey") == "v-ckey"
     for i, rec in enumerate(recs):
         assert rec.check(("split side", i)) > 0
+
+
+def test_serve_kv_on_the_card(card, tmp_path):
+    """``serve-kv`` with no ``--device`` serves from the card: one
+    ``kv put`` and ``kv get`` through the command line at G=64."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(repo) + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "multiraft_tpu_torch", "serve-kv",
+         "--groups", "64", "--data-dir", str(tmp_path / "serve")],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, env=env, text=True,
+    )
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("ready "), (line, proc.poll())
+        addr = f"127.0.0.1:{int(line.split()[1])}"
+
+        def kv(*args):
+            return subprocess.run(
+                [sys.executable, "-m", "multiraft_tpu_torch", "kv", *args,
+                 "--addr", addr],
+                capture_output=True, text=True, env=env, timeout=120,
+            )
+
+        assert kv("put", "card", "h100").returncode == 0
+        r = kv("get", "card")
+        assert r.returncode == 0 and r.stdout.strip() == "h100", r.stderr
+    finally:
+        proc.kill()
+        proc.wait()
+        proc.stdout.close()

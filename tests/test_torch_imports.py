@@ -101,3 +101,28 @@ def test_knobs_read_the_reference_names_with_its_defaults(monkeypatch):
             assert knobs.knob_bool(name) == ref_knobs.knob_bool(name)
     with pytest.raises(KeyError):
         knobs.knob_bool("MRT_NOT_A_KNOB")
+
+
+def test_every_port_knob_is_the_references(monkeypatch):
+    """Each knob the port reads has the reference's name, type and
+    default, and every typed reader parses as the reference's does."""
+    from multiraft_tpu.utils import knobs as ref_knobs
+    from multiraft_tpu_torch.utils import knobs
+
+    ref = {k.name: k for k in ref_knobs.KNOBS}
+    assert len(knobs.KNOBS) >= 40
+    samples = {"int": ("7", "", "junk"), "float": ("0.5", "", "x"),
+               "str": ("/tmp/x", ""), "bool": ("0", "on", "")}
+    for name, (typ, default) in knobs.KNOBS.items():
+        assert (ref[name].type, ref[name].default) == (typ, default), name
+        port_read = getattr(knobs, f"knob_{typ}")
+        ref_read = getattr(ref_knobs, f"knob_{typ}")
+        extra = {} if default is not None or typ in ("str", "bool") else {"default": 3}
+        for raw in samples[typ]:
+            monkeypatch.setenv(name, raw)
+            assert port_read(name, **extra) == ref_read(name, **extra), (name, raw)
+        monkeypatch.delenv(name)
+        assert port_read(name, **extra) == ref_read(name, **extra), name
+        wrong = "int" if typ != "int" else "str"
+        with pytest.raises(TypeError):
+            getattr(knobs, f"knob_{wrong}")(name)
