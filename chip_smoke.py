@@ -111,6 +111,22 @@ and prints no result line):
    minority owner killed under load (mid-migration in the sharded
    form), the survivors serving, a durable restart, every acknowledged
    append read back once.
+9. Verification, each sub-phase with the launch counters reset just
+   before it and read just after:
+   (a) ``bench.py``'s verified run at the headline deployment (kernels
+   on, seed 7): 200 warm-up ticks, 200 at INGEST and one traced chunk,
+   then 3 traced chunks of 200 ticks (``bench.py`` runs 3 such runs;
+   one here) with the leaders of 48 groups killed at each interior
+   boundary by :func:`apply_leader_kills`; the records go through
+   ``engine.bench_verify`` (commit latency of every entry, porcupine
+   over 128 sampled groups, the native DFS on 8 of them), which must
+   find OK with 0 entries unaccounted and each kernel launched at least
+   once a tick; the same script at G=64 gives equal records and results
+   on the card and on the CPU;
+   (b) every ``conformance`` scenario (seed 7) and fuzz seeds 101, 202
+   and 303 through ``run_both`` with the engine on the card, each card
+   stream equal to the sim's and to the CPU engine's; then ``cocktail``
+   at G=256.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2808,6 +2824,335 @@ def phase_shard_serve(card: str, kernels) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the headline run traced, faulted and verified; the engine against
+# the per-replica Raft simulator
+# ---------------------------------------------------------------------------
+
+# bench.py's timed window (bench.py:201-209, :298): chunks of 200 ticks,
+# 3 chunks a run, 48 leaders killed at each interior chunk boundary, 128
+# sampled groups.  RUNS is cut from 3 to 1 to fit the smoke's time.
+BENCH = dict(CHUNK=200, N_CHUNKS=3, RUNS=1, N_FAULT=48, N_SAMPLE=128)
+# The same script at G=64, on the card and on the CPU.
+BENCH_SMALL = dict(G=64, CHUNK=100, N_CHUNKS=3, N_FAULT=8, N_SAMPLE=16)
+
+
+def apply_leader_kills(st, mb, kill_groups, prev_killed):
+    """The port's counterpart of ``bench.py``'s ``apply_leader_kills``
+    (``bench.py:85``): revive the previous round's victims (role
+    follower, votes cleared, ``last_heard`` now; commit and applied are
+    not rewound), then kill the current leader of every group in
+    ``kill_groups``, the live leader at the highest term, and drop the
+    victims' in-flight messages.  ``prev_killed`` and the returned
+    victims are ``(g_array, p_array)``.  Returns ``(state, inbox,
+    killed)``."""
+    import numpy as np
+    import torch
+
+    from multiraft_tpu_torch.engine.host import mask_active
+
+    dev = st.alive.device
+    host = lambda t: t.detach().cpu().numpy().copy()
+    alive, role, votes = host(st.alive), host(st.role), host(st.votes)
+    pre_votes, last_heard = host(st.pre_votes), host(st.last_heard)
+    term = host(st.term).astype(np.int64)
+    g_prev, p_prev = prev_killed
+    if len(g_prev):
+        alive[g_prev, p_prev] = True
+        role[g_prev, p_prev] = 0
+        votes[g_prev, p_prev, :] = False
+        pre_votes[g_prev, p_prev, :] = False
+        last_heard[g_prev, p_prev] = int(st.tick_no)
+    lead_term = np.where((role == 2) & alive, term, np.int64(-1))
+    sel = lead_term[kill_groups]
+    has_leader = sel.max(axis=1) >= 0
+    g_kill = np.asarray(kill_groups)[has_leader]
+    p_kill = sel.argmax(axis=1)[has_leader]
+    alive[g_kill, p_kill] = False
+    on = lambda a: torch.from_numpy(a).to(dev)
+    st = st._replace(alive=on(alive), role=on(role), votes=on(votes),
+                     pre_votes=on(pre_votes), last_heard=on(last_heard))
+    if len(g_kill):
+        dead = np.zeros(alive.shape, bool)
+        dead[g_kill, p_kill] = True
+        dead = on(dead)
+        edge_ok = ~(dead[:, :, None] | dead[:, None, :])
+        mb = mask_active(mb, lambda _, a: a & edge_ok)
+    return st, mb, (g_kill, p_kill)
+
+
+def bench_victims(G: int, n_fault: int, n_sample: int):
+    """``bench.py``'s sampled groups and kill set (``bench.py:298-307``):
+    half the victims are sampled groups, half spread over the rest."""
+    import numpy as np
+
+    sample = [int(g) for g in sorted(set(np.linspace(0, G - 1, n_sample, dtype=int)))]
+    kill = set()
+    if n_fault:
+        half = min(n_fault // 2, len(sample))
+        for i in np.linspace(0, len(sample) - 1, half, dtype=int):
+            kill.add(sample[int(i)])
+        for g in np.linspace(0, G - 2, n_fault - half, dtype=int):
+            g = int(g)
+            kill.add(g + 1 if (g in kill or g in sample) else g)
+    return sample, np.asarray(sorted(kill), np.int64)
+
+
+def traced_run(cfg, device: str, chunk: int, n_chunks: int, n_fault: int,
+               n_sample: int, seed: int = 7) -> dict:
+    """``bench.py``'s verified, faulted run (``bench.py:193-345``) on
+    ``device``: 200 warm-up ticks without ingest, 200 at INGEST, one
+    traced chunk outside the window, then ``n_chunks`` traced chunks
+    with the leaders of ``n_fault`` groups killed at each interior
+    boundary.  Each chunk's records are copied to the host once, outside
+    its timed region.  Keys: ``fold_in(PRNGKey(seed), 1, 2, 3, 10+c)``."""
+    import numpy as np
+    import torch
+
+    from multiraft_tpu_torch.engine.core import (
+        empty_mailbox,
+        init_state,
+        run_ticks,
+        run_ticks_traced,
+    )
+    from multiraft_tpu_torch.utils import prng
+
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    key = prng.PRNGKey(seed)
+    state = init_state(cfg, key, dev)
+    inbox = empty_mailbox(cfg, dev)
+    t0 = time.perf_counter()
+    state, inbox = run_ticks(cfg, state, inbox, chunk, 0, prng.fold_in(key, 1))
+    state, inbox = run_ticks(cfg, state, inbox, chunk, cfg.INGEST, prng.fold_in(key, 2))
+    state, inbox, _ = run_ticks_traced(
+        cfg, state, inbox, chunk, cfg.INGEST, prng.fold_in(key, 3)
+    )
+    sync()
+    warm_s = time.perf_counter() - t0
+    i64 = lambda t: t.detach().cpu().numpy().astype(np.int64)
+    seed_last = i64((state.base + state.log_len).amax(dim=1))
+    seed_commit = i64(state.commit.amax(dim=1))
+    sample, kill_gs = bench_victims(cfg.G, n_fault, n_sample)
+    prev_killed = (np.zeros(0, np.int64), np.zeros(0, np.int64))
+    n_kills = 0
+    chunks, tick_ms, commits = [], [], []
+    prev = seed_commit
+    for c in range(n_chunks):
+        if n_fault and c > 0:
+            state, inbox, prev_killed = apply_leader_kills(
+                state, inbox, kill_gs, prev_killed
+            )
+            n_kills += len(prev_killed[0])
+        sync()
+        t0 = time.perf_counter()
+        state, inbox, rec = run_ticks_traced(
+            cfg, state, inbox, chunk, cfg.INGEST, prng.fold_in(key, 10 + c)
+        )
+        sync()
+        dt = time.perf_counter() - t0
+        chunks.append({k: v.cpu().numpy() for k, v in rec.items()})
+        cur = i64(state.commit.amax(dim=1))
+        commits.append(int((cur - prev).sum()))
+        prev = cur
+        tick_ms.append(dt / chunk * 1e3)
+    return dict(chunks=chunks, seed_last=seed_last, seed_commit=seed_commit,
+                state=state, sample=sample, n_kills=n_kills, tick_ms=tick_ms,
+                commits=commits, warm_s=warm_s)
+
+
+def verify_run(run: dict, cfg) -> dict:
+    """``bench_verify`` over a :func:`traced_run`, as ``bench.py:382-425``
+    runs it; the checker path of each oracle group is counted."""
+    from multiraft_tpu_torch.engine import bench_verify as bv
+
+    for k in bv.CHECKER_PATHS:
+        bv.CHECKER_PATHS[k] = 0
+    recs = bv.concat_records(run["chunks"])
+    prep = bv.prepare_records(recs, run["seed_last"], run["seed_commit"])
+    lat = bv.latency_histogram(recs, run["seed_last"], run["seed_commit"], prep=prep)
+    t0 = time.perf_counter()
+    porc = bv.verify_sampled_groups(
+        recs, run["seed_last"], run["seed_commit"], run["sample"],
+        run["state"], cfg, prep=prep,
+    )
+    return dict(recs=recs, lat=lat, porc=porc, verify_s=time.perf_counter() - t0,
+                paths=dict(bv.CHECKER_PATHS))
+
+
+def _stalled_sampled(run: dict, cfg) -> list:
+    """Sampled groups in the reference's full-ring stall (ROADMAP C),
+    by phase 5's predicate on the run's final state."""
+    st = {k: v.detach().cpu().numpy() for k, v in run["state"]._asdict().items()}
+    stalled = _full_ring_stalls(st, cfg)
+    return [g for g in run["sample"] if stalled[g]]
+
+
+def headline_verified(card: str, kernels) -> dict:
+    """9(a): the headline deployment traced with faults and verified."""
+    import numpy as np
+
+    from multiraft_tpu_torch.engine.core import EngineConfig
+    from multiraft_tpu_torch.porcupine.native import native_available
+
+    if not native_available():
+        raise AssertionError("the native porcupine checker did not build")
+    cfg = EngineConfig(use_kernels=True, **HEADLINE)
+    kernels.reset_launches()
+    run = traced_run(cfg, "cuda", BENCH["CHUNK"], BENCH["N_CHUNKS"] * BENCH["RUNS"],
+                     BENCH["N_FAULT"], BENCH["N_SAMPLE"])
+    launches = dict(kernels.LAUNCHES)
+    v = verify_run(run, cfg)
+    lat, porc = v["lat"], v["porc"]
+    mean_ms = float(np.mean(run["tick_ms"]))
+    p99_ms = float(np.percentile(np.array(run["tick_ms"]), 99))
+    out = dict(
+        ticks=len(run["tick_ms"]) * BENCH["CHUNK"], kills=run["n_kills"],
+        warm_s=run["warm_s"], tick_ms_mean=mean_ms, tick_ms_p99=p99_ms,
+        commits=sum(run["commits"]),
+        commits_per_s=sum(run["commits"]) / (sum(run["tick_ms"]) * BENCH["CHUNK"] / 1e3),
+        entries=lat["entries"], unaccounted=lat["unaccounted"],
+        pre_window=lat["pre_window_commits"], churned_groups=lat["churned_groups"],
+        rebound_entries=lat["rebound_entries"],
+        p50_ticks=lat["p50_ticks"], p99_ticks=lat["p99_ticks"],
+        p50_ms=lat["p50_ticks"] * mean_ms, p99_ms=lat["p99_ticks"] * mean_ms,
+        failover_entries=lat["failover_entries"],
+        failover_p50_ticks=lat["failover_p50_ticks"],
+        failover_p99_ticks=lat["failover_p99_ticks"],
+        failover_p50_ms=lat["failover_p50_ticks"] * mean_ms,
+        failover_p99_ms=lat["failover_p99_ticks"] * mean_ms,
+        porcupine=porc["porcupine"], sampled=porc["sampled_groups"],
+        groups_ok=porc.get("groups_ok"), groups_unknown=porc.get("groups_unknown"),
+        groups_churned=porc.get("groups_churned"),
+        ring_crosschecked=porc.get("ring_entries_crosschecked"),
+        ring_arbitrated=porc.get("ring_arbitrated_entries"),
+        ambiguous=porc.get("ambiguous_entries"),
+        dfs_oracle_groups=porc.get("dfs_oracle_groups"),
+        checker_paths=v["paths"], verify_s=v["verify_s"],
+        stalled_sampled=_stalled_sampled(run, cfg), launches=launches,
+    )
+    log(f"9a: G={cfg.G} P={cfg.P} L={cfg.L} E={cfg.E} INGEST={cfg.INGEST}, "
+        f"{out['ticks']} traced ticks, {out['kills']} leaders killed: "
+        f"{mean_ms:.3f} ms/tick mean, {p99_ms:.3f} p99 (per chunk), "
+        f"{out['commits_per_s']:.0f} commits/s [{card}]")
+    log(f"9a: {lat['entries']} entries measured, {lat['unaccounted']} "
+        f"unaccounted, {lat['churned_groups']} churned groups; commit latency "
+        f"p50/p99 {lat['p50_ticks']}/{lat['p99_ticks']} ticks = "
+        f"{out['p50_ms']:.3f}/{out['p99_ms']:.3f} ms; failover p50/p99 "
+        f"{lat['failover_p50_ticks']}/{lat['failover_p99_ticks']} ticks = "
+        f"{out['failover_p50_ms']:.3f}/{out['failover_p99_ms']:.3f} ms [{card}]")
+    log(f"9a: porcupine {porc['porcupine']} over {porc['sampled_groups']} "
+        f"sampled groups: ok {porc.get('groups_ok')}, unknown "
+        f"{porc.get('groups_unknown')}, {porc.get('ring_entries_crosschecked')} "
+        f"ring entries cross-checked, checker paths {v['paths']}, "
+        f"{v['verify_s']:.2f} s; launches {launches} [{card}]")
+    if porc["porcupine"] != "ok" or porc.get("groups_unknown"):
+        raise AssertionError(f"9a: porcupine {porc}")
+    if lat["unaccounted"] != 0:
+        raise AssertionError(f"9a: {lat['unaccounted']} entries unaccounted")
+    if not porc.get("ring_entries_crosschecked"):
+        raise AssertionError("9a: the ring cross-check checked nothing")
+    if v["paths"]["native"] <= 0 or v["paths"]["generic"]:
+        raise AssertionError(f"9a: checker paths {v['paths']}, the native DFS must run")
+    if lat["entries"] <= 0 or lat["churned_groups"] <= 0:
+        raise AssertionError(f"9a: nothing measured or no churn: {lat}")
+    for name, n in launches.items():
+        if n < out["ticks"]:
+            raise AssertionError(f"9a: kernel {name} launched {n} times")
+
+    # The same script at G=64 on the card and on the CPU.
+    small = EngineConfig(use_kernels=True, **dict(HEADLINE, G=BENCH_SMALL["G"]))
+    t0 = time.perf_counter()
+    res = {}
+    for dev in ("cuda", "cpu"):
+        r = traced_run(small, dev, BENCH_SMALL["CHUNK"], BENCH_SMALL["N_CHUNKS"],
+                       BENCH_SMALL["N_FAULT"], BENCH_SMALL["N_SAMPLE"])
+        res[dev] = verify_run(r, small)
+    for k in res["cuda"]["recs"]:
+        a, b = res["cuda"]["recs"][k], res["cpu"]["recs"][k]
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError(f"9a: G=64 record {k} differs between card and CPU")
+    for k in ("lat", "porc"):
+        if res["cuda"][k] != res["cpu"][k]:
+            raise AssertionError(f"9a: G=64 {k} differs: {res['cuda'][k]} != {res['cpu'][k]}")
+    if res["cuda"]["porc"]["porcupine"] != "ok" or res["cuda"]["lat"]["unaccounted"]:
+        raise AssertionError(f"9a: G=64 verification {res['cuda']['porc']}")
+    out["small"] = dict(G=small.G, churned=res["cuda"]["lat"]["churned_groups"],
+                        entries=res["cuda"]["lat"]["entries"],
+                        s=time.perf_counter() - t0)
+    log(f"9a: G=64 card and CPU: records and bench_verify results equal "
+        f"({out['small']['entries']} entries, {out['small']['churned']} churned "
+        f"groups, {out['small']['s']:.2f} s)")
+    return out
+
+
+# 9(b) runs the battery at the reference's width (two lanes), then the
+# densest fault mix at this width.
+WIDE_GROUPS = 256
+
+
+def conformance_on_card(card: str, kernels) -> dict:
+    """9(b): every conformance scenario and three fuzz seeds on the card,
+    each card stream held to the sim's (``run_both``) and to the port's
+    CPU run; then ``cocktail`` at ``WIDE_GROUPS`` groups."""
+    from multiraft_tpu_torch import conformance as conf
+
+    kernels.reset_launches()
+    runs = [(name, conf.SCENARIOS[name], 7) for name in sorted(conf.SCENARIOS)]
+    runs += [(f"fuzz-{s}", conf.random_scenario(s), s) for s in (101, 202, 303)]
+    out = {}
+    for name, sc, seed in runs:
+        stats = {}
+        t0 = time.perf_counter()
+        sim, card_streams = conf.run_both(sc, seed=seed, device="cuda", stats=stats)
+        card_s = time.perf_counter() - t0
+        cpu_streams = conf.run_engine(sc, seed=seed, device="cpu")
+        _same_streams(name, sc, sim, card_streams, cpu_streams)
+        out[name] = dict(ticks=stats["ticks"], s=card_s,
+                         ms_per_tick=card_s / stats["ticks"] * 1e3)
+        log(f"9b: {name}: {stats['ticks']} ticks, {card_s:.2f} s with the sim, "
+            f"{out[name]['ms_per_tick']:.3f} ms per tick; card = sim = CPU [{card}]")
+    sc = conf.SCENARIOS["cocktail"]
+    stats = {}
+    t0 = time.perf_counter()
+    card_streams = conf.run_engine(sc, seed=7, groups=WIDE_GROUPS, device="cuda",
+                                   stats=stats)
+    card_s = time.perf_counter() - t0
+    sim = conf.run_sim(sc, seed=7)
+    cpu_streams = conf.run_engine(sc, seed=7, groups=WIDE_GROUPS, device="cpu")
+    _same_streams("cocktail-wide", sc, sim, card_streams, cpu_streams)
+    out["cocktail-wide"] = dict(groups=WIDE_GROUPS, ticks=stats["ticks"], s=card_s,
+                                ms_per_tick=card_s / stats["ticks"] * 1e3)
+    log(f"9b: cocktail at G={WIDE_GROUPS}: {stats['ticks']} ticks, {card_s:.2f} s, "
+        f"{out['cocktail-wide']['ms_per_tick']:.3f} ms per tick; card = sim = CPU "
+        f"[{card}]")
+    if max(kernels.LAUNCHES.values()) > 0:
+        raise AssertionError(f"9b: launches {kernels.LAUNCHES} (the plain tick runs here)")
+    return out
+
+
+def _same_streams(name, sc, sim, card_streams, cpu_streams) -> None:
+    if card_streams != cpu_streams:
+        raise AssertionError(f"9b: {name}: card streams differ from the CPU's")
+    for g, s in enumerate(card_streams):
+        if (s if sc.ordered else sorted(s)) != (sim if sc.ordered else sorted(sim)):
+            raise AssertionError(f"9b: {name}: group {g} stream differs from the sim's")
+
+
+def phase_verify(card: str, kernels) -> dict:
+    """Phase 9: each sub-phase with the launch counts set to 0 just
+    before it and read just after."""
+    out = {}
+    for name, fn in (("9a", headline_verified), ("9b", conformance_on_card)):
+        t0 = time.perf_counter()
+        out[name] = fn(card, kernels)
+        out[name]["phase_s"] = time.perf_counter() - t0
+        out[name]["launches"] = dict(kernels.LAUNCHES)
+        log(f"{name}: launches {out[name]['launches']}, "
+            f"{out[name]['phase_s']:.2f} s [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2849,6 +3194,9 @@ def main() -> int:
     t0 = time.perf_counter()
     shard_served = phase_shard_serve(card, kernels)
     log(f"shard serve: phase 8 in {time.perf_counter() - t0:.2f} s [{card}]")
+    t0 = time.perf_counter()
+    verified = phase_verify(card, kernels)
+    log(f"verify: phase 9 in {time.perf_counter() - t0:.2f} s [{card}]")
 
     line = []
     for name in ("quorum_commit", "vote_tally"):
@@ -2880,6 +3228,7 @@ def main() -> int:
     log(f"sharded engine: {json.dumps(sharded)} [{card}]")
     log(f"served: {json.dumps(served)} [{card}]")
     log(f"shard served: {json.dumps(shard_served)} [{card}]")
+    log(f"verified: {json.dumps(verified)} [{card}]")
     log(f"total: {time.perf_counter() - t_start:.1f} s [{card}]")
     log(json.dumps({"kernels": line}))
     print(json.dumps({

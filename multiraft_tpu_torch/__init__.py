@@ -17,5 +17,11 @@ plane of ``distributed.stateplane``), ``distributed.split_server`` and
 ``distributed.engine_cluster`` runs them as processes;
 ``python -m multiraft_tpu_torch`` is the command line (``serve-kv``,
 ``serve-shardkv``, ``kv``).  ``porcupine`` is the linearizability
-checker (``porcupine.native``: its C++ DFS).
+checker (``porcupine.native``: its C++ DFS).  The per-replica stack is
+the reference's, on the host: the event-driven Raft simulator
+(``raft``), the labrpc network (``transport.network``), the simulated
+services (``services.kvraft``, ``shardctrler``, ``shardkv``), their
+harnesses (``harness``) and the config system (``utils.config``);
+``conformance`` holds the engine against it, and ``engine.bench_verify``
+verifies a traced headline run.
 """

@@ -13,9 +13,10 @@ new one on the same data directory, and the engine recovers from disk.
 The spec's ``device`` (default ``"cuda"``) is where the engine lives:
 a child without a card exits non-zero before its readiness line, never
 quietly on the CPU; tests pass ``"cpu"``.  The reference's per-replica
-kinds (``kv``, ``ctrler``, ``shardkv``) need the per-replica Raft stack,
-which this package does not have yet (ROADMAP queue A item 5): they
-raise ``NotImplementedError``.
+kinds (``kv``, ``ctrler``, ``shardkv``) serve the simulated services
+(``services.kvraft``, ``shardctrler``, ``shardkv``) over TCP through
+``serve_kv``, ``serve_ctrler`` and ``serve_shardkv``, which this package
+does not have yet (ROADMAP queue A): they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -46,8 +47,8 @@ def _server_main() -> None:  # pragma: no cover - subprocess entry
     device = spec.get("device", "cuda")
     if kind in PER_REPLICA_KINDS:
         raise NotImplementedError(
-            f"server kind {kind!r} runs the per-replica Raft stack, which "
-            f"multiraft_tpu_torch does not have yet (ROADMAP queue A item 5)"
+            f"server kind {kind!r} serves a per-replica service over TCP, "
+            f"which multiraft_tpu_torch does not do yet (ROADMAP queue A)"
         )
     if kind == "engine_kv":
         from .engine_server import serve_engine_kv

@@ -115,13 +115,21 @@ _PKG = __name__.split(".")[0]
 _WIRE_PKG = "multiraft_tpu"
 # Registered classes whose wire module differs from their own.
 _RENAMED: set = set()
+# One string object per wire module name: the pickler memoizes strings
+# by identity, and the C pickler writes a module name it has written
+# before as a memo reference, so an equal but distinct string each time
+# would give longer bytes than the reference's.
+_WIRE_NAMES: dict = {}
 
 
 def wire_module(cls: Type) -> str:
     """The module a registered class is written under on the wire."""
     mod = cls.__module__
     if mod == _PKG or mod.startswith(_PKG + "."):
-        return _WIRE_PKG + mod[len(_PKG):]
+        name = _WIRE_NAMES.get(mod)
+        if name is None:
+            name = _WIRE_NAMES[mod] = _WIRE_PKG + mod[len(_PKG):]
+        return name
     return mod
 
 

@@ -311,3 +311,32 @@ def test_serve_shardkv_on_the_card(card, tmp_path):
         proc.kill()
         proc.wait()
         proc.stdout.close()
+
+
+def test_conformance_scenario_on_the_card_equals_the_cpu(card):
+    """One conformance scenario with its engine half on the card: the
+    stream equals the sim's (``run_both``) and the CPU engine's."""
+    from multiraft_tpu_torch import conformance as conf
+
+    sc = conf.SCENARIOS["cocktail"]
+    stats = {}
+    sim, on_card = conf.run_both(sc, seed=7, device=card, stats=stats)
+    assert on_card == conf.run_engine(sc, seed=7, device="cpu")
+    assert on_card == [sim, sim] and stats["ticks"] > 0
+
+
+def test_bench_verify_on_the_card_equals_the_cpu(card):
+    """The smoke's traced, faulted script at G=64 on the card and on the
+    CPU: equal records and equal ``bench_verify`` results."""
+    from chip_smoke import HEADLINE, traced_run, verify_run
+
+    cfg = EngineConfig(use_kernels=True, **dict(HEADLINE, G=64))
+    kernels.reset_launches()
+    got = [verify_run(traced_run(cfg, dev, 60, 3, 8, 16), cfg) for dev in ("cuda", "cpu")]
+    assert min(kernels.LAUNCHES.values()) >= 5 * 60
+    for k in got[0]["recs"]:
+        a, b = got[0]["recs"][k], got[1]["recs"][k]
+        assert a.dtype == b.dtype and np.array_equal(a, b), k
+    assert got[0]["lat"] == got[1]["lat"] and got[0]["porc"] == got[1]["porc"]
+    assert got[0]["porc"]["porcupine"] == "ok" and got[0]["lat"]["unaccounted"] == 0
+    assert got[0]["lat"]["churned_groups"] > 0

@@ -68,7 +68,12 @@ def test_whole_package_imports_with_jax_unimportable():
         "          'distributed.engine_shard_server', 'distributed.split_server',\n"
         "          'distributed.split_shard_server', 'distributed.launch',\n"
         "          'distributed.chaos', 'distributed.engine_cluster',\n"
-        "          'distributed.cluster'):\n"
+        "          'distributed.cluster', 'utils.config', 'raft.messages',\n"
+        "          'raft.log', 'raft.persister', 'raft.node', 'transport.network',\n"
+        "          'harness.cluster', 'harness.raft_harness', 'harness.kv_harness',\n"
+        "          'harness.ctrler_harness', 'harness.shardkv_harness', 'conformance',\n"
+        "          'services.backend', 'services.kvraft', 'services.shardctrler',\n"
+        "          'services.shardkv', 'engine.bench_verify'):\n"
         "    assert 'multiraft_tpu_torch.' + n in names, n\n"
         "print(len(names))\n"
     )
@@ -133,3 +138,56 @@ def test_every_port_knob_is_the_references(monkeypatch):
         wrong = "int" if typ != "int" else "str"
         with pytest.raises(TypeError):
             getattr(knobs, f"knob_{wrong}")(name)
+
+
+# The host-side modules the port copies from the reference, by their
+# shared path: each keeps every public name of its counterpart.
+HOST_MODULES = (
+    "utils.config", "raft.messages", "raft.log", "raft.persister", "raft.node",
+    "transport.network", "harness.cluster", "harness.raft_harness",
+    "harness.kv_harness", "harness.ctrler_harness", "harness.shardkv_harness",
+    "conformance", "services.backend", "services.kvraft",
+    "services.shardctrler", "services.shardkv", "engine.bench_verify",
+)
+
+
+@pytest.mark.parametrize("name", HOST_MODULES)
+def test_host_module_has_the_reference_public_names(name):
+    import importlib
+
+    ref = importlib.import_module(f"multiraft_tpu.{name}")
+    port = importlib.import_module(f"multiraft_tpu_torch.{name}")
+    names = getattr(ref, "__all__", None) or [
+        n for n in vars(ref) if not n.startswith("_")
+    ]
+    missing = [n for n in names if not hasattr(port, n)]
+    assert not missing, f"multiraft_tpu_torch.{name} lacks {missing}"
+
+
+def test_sim_messages_travel_under_the_reference_names():
+    """The messages the simulated network copies through the codec are
+    registered, under the reference package's module names."""
+    import multiraft_tpu.raft.messages as ref_msgs
+    import multiraft_tpu.transport.codec as ref_codec
+    from multiraft_tpu_torch.raft import messages
+    from multiraft_tpu_torch.services import kvraft, shardctrler, shardkv
+    from multiraft_tpu_torch.transport import codec
+
+    for mod in (messages, kvraft, shardctrler, shardkv):
+        for cls in vars(mod).values():
+            if isinstance(cls, type) and cls.__module__ == mod.__name__ and (
+                cls.__qualname__ in codec._REGISTRY
+            ):
+                assert codec.wire_module(cls) == mod.__name__.replace(
+                    "multiraft_tpu_torch", "multiraft_tpu"
+                )
+    args = messages.AppendEntriesArgs(
+        term=3, leader_id=1, prev_log_index=2, prev_log_term=1,
+        entries=[messages.Entry(index=3, term=3, command="x")], leader_commit=2,
+    )
+    ref_args = ref_msgs.AppendEntriesArgs(
+        term=3, leader_id=1, prev_log_index=2, prev_log_term=1,
+        entries=[ref_msgs.Entry(index=3, term=3, command="x")], leader_commit=2,
+    )
+    assert codec.encode(args) == ref_codec.encode(ref_args)
+    assert codec.decode(ref_codec.encode(ref_args)) == args
