@@ -127,9 +127,40 @@ and prints no result line):
    and 303 through ``run_both`` with the engine on the card, each card
    stream equal to the sim's and to the CPU engine's; then ``cocktail``
    at G=256.
+10. The placed, self-healing fleet (``harness/fleet.py`` over the
+   ``serve-shardkv`` fleet processes, P=3, L=64, E=8, INGEST=8, kernels
+   off), each sub-phase with the launch counters reset just before it
+   and read just after:
+   (a) ``PlacedFleet`` of 3 processes x 256 gids with 160 spare slots
+   each (cut from 1,000, PERF.md section 4), sync shipping to a data
+   dir, the controller at the reference's chaos knobs throughout: one
+   join of all 768 gids; skewed closed-loop appends
+   (hot factor 6) on 6 shard owners of process 0 until the controller
+   rebalances (spread before and after); a ``make_schedule`` nemesis
+   (seed 7, delay/drop/sever/partition, ~20 s) under ``run_clerk_load``,
+   ending in a ``kill_mesh_process`` of the process then hosting the most
+   groups; every victim gid re-placed (durably) and led on a survivor,
+   each shard owner among them serving a Put/Get; no acknowledged write
+   lost; the whole clerk history linearizable (native porcupine); every
+   window verified; then ``collect_bundle`` and the doctor, which must
+   name the killed process an UNCLEAN DEATH, hold a PLACE failover
+   record for every victim gid and find no placement thrash;
+   (b) 3 processes x 64 gids, P=4 with voters {0,1,2}: a group's leader
+   replica killed under acknowledged writes and healed (learner,
+   catch-up, joint, promote), then again with the controller crashed
+   mid-reconfig and a fresh one resuming from the replicated intent;
+   (c) ``InProcessFleet`` at 3 x 2 and 3 x 64 gids, the same seed and
+   script of legs through ``LocalFleetTransport`` (a live migration, a
+   replica replacement, a durable recovery from a standby, an empty
+   adoption after the kill) on the card and on the CPU, equal planes,
+   data, dedup tables and placement map after every leg.
 
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --only 10a 10b 10c`` runs the named sub-phases of
+phase 10 alone, with the controller's time in each transport and map verb,
+and prints no contract lines.
 """
 
 from __future__ import annotations
@@ -1222,104 +1253,39 @@ def sharded_headline(card: str) -> dict:
     return out
 
 
-class _SplitRig:
-    """Two split 'processes' in one interpreter (the split servers'
-    deployment without the sockets): every pump extracts each live
-    side's slabs and injects them into the other live side.  A killed
-    side stops pumping and its slabs are dropped."""
+def _split_rig(sides):
+    """The port's split harness (``harness/split_harness.SplitShardRig``:
+    every pump extracts each live side's slabs and injects them into
+    the other live side; a killed side stops pumping and its slabs are
+    dropped), timing each shuttle round and counting its slab bytes."""
+    import pickle
 
-    ADMIN_CLIENT, CLIENT = 424242, 777
+    from multiraft_tpu_torch.harness.split_harness import SplitShardRig
 
-    def __init__(self, sides) -> None:
-        self.sides = sides  # [(service, peering)]
-        self.alive = [True] * len(sides)
-        self.pump_s, self.slab_bytes = [], []
-        self._cmd = self._admin_cmd = 0
+    class _SplitRig(SplitShardRig):
+        def __init__(self, sides) -> None:
+            super().__init__(sides, on_slab=self._count)
+            self.pump_s, self.slab_bytes, self._bytes = [], [], 0
 
-    def shuttle(self, rounds: int = 1) -> None:
-        import pickle
+        def _count(self, slab) -> None:
+            self._bytes += len(pickle.dumps(slab, protocol=pickle.HIGHEST_PROTOCOL))
 
-        for _ in range(rounds):
-            t0, nbytes = time.perf_counter(), 0
-            for i, (svc, peering) in enumerate(self.sides):
-                if not self.alive[i]:
-                    continue
-                svc.pump(1)
-                for proc, slab in peering.extract().items():
-                    nbytes += len(pickle.dumps(slab, protocol=pickle.HIGHEST_PROTOCOL))
-                    if self.alive[proc]:
-                        self.sides[proc][1].inject(slab)
-            self.pump_s.append(time.perf_counter() - t0)
-            self.slab_bytes.append(nbytes)
+        def shuttle(self, rounds: int = 1) -> None:
+            for _ in range(rounds):
+                t0, self._bytes = time.perf_counter(), 0
+                super().shuttle(1)
+                self.pump_s.append(time.perf_counter() - t0)
+                self.slab_bytes.append(self._bytes)
 
-    def live(self):
-        return [s for i, s in enumerate(self.sides) if self.alive[i]]
+    return _SplitRig(sides)
 
-    def settle(self, G: int, max_rounds: int = 800) -> None:
-        for _ in range(max_rounds):
-            self.shuttle()
-            per = [svc.driver.leaders_per_group() for svc, _ in self.live()]
-            if all(sum(int(a[g]) for a in per) == 1 for g in range(G)):
-                return
-        raise AssertionError("split: the groups did not elect one leader each")
 
-    def admin(self, kind: str, arg, max_rounds: int = 2000) -> None:
-        self._admin_cmd += 1
-        t = None
-        for _ in range(max_rounds):
-            if t is not None and t.done and not t.failed:
-                return
-            if t is None or t.done:
-                for svc, _ in self.live():
-                    nt = svc.ctrl_local(kind, arg, command_id=self._admin_cmd,
-                                        client_id=self.ADMIN_CLIENT)
-                    if nt is not None:
-                        t = nt
-                        break
-            self.shuttle()
-        raise AssertionError(f"split: ctrler {kind} never committed")
-
-    def client_op(self, op: str, key: str, value: str = "", max_rounds: int = 2000) -> str:
-        from multiraft_tpu_torch.services.shardkv import key2shard
-
-        self._cmd += 1
-        t = None
-        for _ in range(max_rounds):
-            if t is not None and t.done and not t.failed and t.err == "OK":
-                return t.value
-            if t is None or t.done:
-                t = None
-                live = self.live()
-                gid = live[0][0].query_latest().shards[key2shard(key)]
-                for svc, _ in live:
-                    if gid in svc.reps:
-                        t = svc.submit_local(gid, op, key, value, client_id=self.CLIENT,
-                                             command_id=self._cmd)
-                        if t is not None:
-                            break
-            self.shuttle()
-        raise AssertionError(f"split: {op}({key!r}) never committed")
-
-    def migrating(self) -> bool:
-        from multiraft_tpu_torch.services.shardkv import SERVING
-
-        return any(sl.state != SERVING for svc, _ in self.live()
-                   for r in svc.reps.values() for sl in r.shards.values())
-
-    def wait(self, pred, max_rounds: int, what: str) -> None:
-        for _ in range(max_rounds):
-            if pred():
-                return
-            self.shuttle()
-        raise AssertionError(f"split: {what} not reached in {max_rounds} rounds")
-
-    def migrated(self, gids) -> bool:
-        from multiraft_tpu_torch.services.shardkv import SERVING
-
-        latest = max(svc.configs[-1].num for svc, _ in self.live())
-        return all(svc.reps[g].cur.num == latest
-                   and all(sl.state == SERVING for sl in svc.reps[g].shards.values())
-                   for svc, _ in self.live() for g in gids)
+def _shuttle_until(rig, pred, max_rounds: int, what: str) -> None:
+    for _ in range(max_rounds):
+        if pred():
+            return
+        rig.shuttle()
+    raise AssertionError(f"split: {what} not reached in {max_rounds} rounds")
 
 
 def _split_sides(cls, device, owners, cfg, delay_on=None, delay=300):
@@ -1357,25 +1323,26 @@ def sharded_split(card: str) -> dict:
     G = cfg.G
     owners = {g: [0, 1, 1] for g in range(G)}
     t0 = time.perf_counter()
-    kv = _SplitRig(_split_sides(SplitKV, "cuda", owners, cfg))
-    kv.settle(G)
+    kv = _split_rig(_split_sides(SplitKV, "cuda", owners, cfg))
+    kv.settle(G, max_rounds=800)
     acked = {}
     for i, g in enumerate(range(0, G, 8)):
         for r in range(3):
-            side = next(s for s, _ in kv.live() if s.local_leader(g) is not None)
+            side = next(s for i, (s, _) in enumerate(kv.sides)
+                        if kv.alive[i] and s.local_leader(g) is not None)
             t = side.submit_local(g, KVOp(op=OP_APPEND, key=f"k{g}", value=f"[{r}]",
                                           client_id=5, command_id=i * 3 + r + 1))
-            kv.wait(lambda: t.done, 300, "a split KV commit")
+            _shuttle_until(kv, lambda: t.done, 300, "a split KV commit")
             if t.failed:
                 raise AssertionError("split: a KV append lost its slot")
             acked[g] = acked.get(g, "") + f"[{r}]"
-    kv.wait(lambda: all(s.data[g].get(f"k{g}") == v for s, _ in kv.sides
+    _shuttle_until(kv, lambda: all(s.data[g].get(f"k{g}") == v for s, _ in kv.sides
                         for g, v in acked.items()), 200, "both sides applied")
     kv_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    rig = _SplitRig(_split_sides(SplitShardKV, "cuda", owners, cfg, delay_on=1))
-    rig.settle(G)
+    rig = _split_rig(_split_sides(SplitShardKV, "cuda", owners, cfg, delay_on=1))
+    rig.settle(G, max_rounds=800)
     lead0 = sum(rig.sides[0][0].driver.leader_of(g) is not None for g in range(G))
     rig.admin("join", {1: ["p1"]})
     keys = [chr(ord("a") + i) + "key" for i in range(10)]
@@ -1384,7 +1351,8 @@ def sharded_split(card: str) -> dict:
         rig.client_op("Append", k, f"[a-{k}]")
         model[k] = f"[a-{k}]"
     rig.admin("join", {2: ["p2"]})
-    rig.wait(rig.migrating, 1500, "migration in flight")
+    if not rig.wait_migrating(1500):
+        raise AssertionError("split: migration in flight not reached in 1500 rounds")
     kill_tick = rig.sides[1][0].driver.tick
     rig.alive[0] = False  # driver 0 stops pumping; its slabs are dropped
     survivor = rig.sides[1][0]
@@ -1392,8 +1360,8 @@ def sharded_split(card: str) -> dict:
     rig.client_op("Append", stay, "[during]")
     model[stay] += "[during]"
     try:
-        rig.wait(lambda: rig.migrated([1, 2]), 4000, "migration on the survivor")
-    except AssertionError:
+        rig.wait_migrated([1, 2], 4000)
+    except TimeoutError:
         st = survivor.driver.np_state()
         stalled = np.nonzero(_full_ring_stalls(st, cfg))[0].tolist()
         raise AssertionError(f"split: migration did not finish on the survivor; groups "
@@ -3153,6 +3121,632 @@ def phase_verify(card: str, kernels) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: a placed, durable, self-healing fleet on the card
+# ---------------------------------------------------------------------------
+
+# The reference's placement chaos knobs (tests/test_placement.py:789-792).
+PLACE_KNOBS = dict(scrape_s=0.3, dead_s=2.0, cooldown_s=5.0, min_gain=0.25, max_moves=1)
+# The self-healing runs: voluntary moves off, the replace policy on.
+HEAL_KNOBS = dict(scrape_s=0.3, dead_s=2.0, cooldown_s=5.0, min_gain=10.0, max_moves=0)
+# 10(a)'s deployment: 3 fleet processes of PLACED["gpp"] gids, each with
+# PLACED["spare"] spare slots (the survivors' spares must hold every gid of
+# the killed process).  Cut from 1,000 gids a process to the floor of 256
+# to fit the smoke's time: a failover re-places the victim's gids one after
+# another, three replicated intents and a recover RPC each (PERF.md section
+# 4).  The map's replicas snapshot past MAP_MAXRAFTSTATE bytes of log.
+PLACED = dict(gpp=256, spare=160, nemesis_s=20.0)
+MAP_MAXRAFTSTATE = 16384
+
+
+def _keys_by_gid(shards, n_keys: int = 400) -> dict:
+    """key -> owning gid under the config's shard table, for keys that
+    cover every shard (a key's shard is its first byte mod 10)."""
+    from multiraft_tpu_torch.services.shardkv import key2shard
+
+    return {_k("pk", i): shards[key2shard(_k("pk", i))] for i in range(n_keys)}
+
+
+def _proc_spread(loads: dict, placement: dict, procs, killed=()) -> float:
+    """Per-process load spread (max - min summed commit rate) under a
+    placement (scripts/placement_scenario.py's measure)."""
+    load = {p: 0.0 for p in procs if p not in killed}
+    for gid, rate in loads.items():
+        if placement.get(gid) in load:
+            load[placement[gid]] += rate
+    return max(load.values()) - min(load.values()) if load else 0.0
+
+
+class _Acked:
+    """A single-writer closed-loop clerk that records every op for
+    porcupine and keeps the model of what was acknowledged."""
+
+    def __init__(self, fleet) -> None:
+        self.ck = fleet.clerk()
+        self.model, self.history = {}, []
+
+    def append(self, key: str, tag: str) -> None:
+        from multiraft_tpu_torch.porcupine.types import OP_APPEND, KvInput, KvOutput, Operation
+
+        t0 = time.monotonic()
+        self.ck.append(key, tag, timeout=600.0)
+        self.history.append(Operation(self.ck.client_id, KvInput(op=OP_APPEND, key=key, value=tag),
+                                      t0, KvOutput(value=""), time.monotonic()))
+        self.model[key] = self.model.get(key, "") + tag
+
+    def lost(self) -> int:
+        """Acknowledged keys whose value does not read back exactly."""
+        return sum(self.ck.get(k, timeout=120.0) != v for k, v in self.model.items())
+
+    def close(self) -> None:
+        self.ck.close()
+
+
+def placed_failover(card: str, device: str = "cuda", gpp: int = PLACED["gpp"],
+                    spare: int = PLACED["spare"], nemesis_s: float = PLACED["nemesis_s"]) -> dict:
+    """10(a): ``PlacedFleet`` over TCP, durable (sync shipping to a data
+    dir): a join of every gid, a skew the controller rebalances, a
+    nemesis of delay/drop/sever/partition windows ending in a kill of
+    the process hosting the most groups, durable failover, then a
+    postmortem bundle read by the doctor."""
+    import shutil
+    import threading
+
+    from multiraft_tpu_torch.analysis import postmortem
+    from multiraft_tpu_torch.distributed import flightrec
+    from multiraft_tpu_torch.distributed.placement import PlacementController
+    from multiraft_tpu_torch.harness.bundle import collect_bundle
+    from multiraft_tpu_torch.harness.fleet import PlacedFleet
+    from multiraft_tpu_torch.harness.nemesis import Nemesis, make_schedule, run_clerk_load
+    from multiraft_tpu_torch.harness.observe import FleetObserver
+    from multiraft_tpu_torch.services.shardkv import key2shard
+
+    root = os.path.join(SCRATCH, "placed")
+    shutil.rmtree(root, ignore_errors=True)
+    frec_dir = os.path.join(root, "rings")
+    os.makedirs(frec_dir)
+    os.environ["MRT_FLIGHTREC_DIR"] = frec_dir
+    assignment = [[p * gpp + j + 1 for j in range(gpp)] for p in range(3)]
+    all_gids = [g for gl in assignment for g in gl]
+    fleet = PlacedFleet(assignment, spare_slots=spare, seed=31, chaos_seed=7, shipping=True,
+                        ship_sync=True, data_dir=os.path.join(root, "data"), device=device,
+                        controller_kwargs=PLACE_KNOBS, map_maxraftstate=MAP_MAXRAFTSTATE)
+    out = {"gids": len(all_gids), "gids_per_process": gpp, "spare_slots": spare}
+    obs = writer = None
+    try:
+        t0 = time.perf_counter()
+        fleet.start()
+        out["ready_s"] = time.perf_counter() - t0
+        # The harness's controller idles until the skew is measured: the
+        # spread before is read by a probe that scrapes and never moves.
+        fleet.controller.stop()
+        tr = fleet.controller.transport
+        addrs = list(tr.addrs)
+        obs = FleetObserver(addrs)
+        t0 = time.perf_counter()
+        fleet.admin("join", all_gids, timeout=300.0)
+        out["join_s"] = time.perf_counter() - t0
+        shards = _rpc(fleet.node, fleet.node.client_end(*addrs[0]), "EngineShardKV.config")[1]
+        kmap = _keys_by_gid(shards)
+        owners = sorted(set(kmap.values()))
+        _, placement0 = fleet.placement()
+        hot = [g for g in owners if placement0[g] == 0][:6]
+        if len(hot) < 1:
+            raise AssertionError(f"10(a): no shard owner on process 0 ({owners})")
+        hot_keys = [k for k, g in kmap.items() if g in hot]
+        cold_keys = [k for k, g in kmap.items() if g not in hot]
+        writer = _Acked(fleet)
+        rounds = [0]
+
+        def skew(n: int) -> None:  # scripts/placement_scenario.py's apply_skewed_load
+            for _ in range(n):
+                r = rounds[0]
+                for i in range(6):  # hot_factor
+                    writer.append(hot_keys[(r * 6 + i) % len(hot_keys)], f"h{r}.{i},")
+                writer.append(cold_keys[r % len(cold_keys)], f"c{r},")
+                rounds[0] += 1
+
+        probe = PlacementController(tr, fleet.pmap, scrape_s=0.0, dead_s=1e9, max_moves=0,
+                                    min_gain=1e9)
+        for _ in range(2):
+            skew(3)
+            probe.scrape()
+        out["spread_before"] = _proc_spread(probe.loads, placement0, range(3))
+        ctl = fleet.controller = PlacementController(tr, fleet.pmap, obs=fleet.node.obs,
+                                                     **PLACE_KNOBS)
+        ctl.start()
+        t0 = time.perf_counter()
+        while ctl.moves_done < 1 and time.perf_counter() - t0 < 120:
+            skew(1)
+        t_moved = time.perf_counter()
+        while time.perf_counter() - t_moved < 1.5:  # fresh scrape windows on the new map
+            skew(1)
+        _, placement1 = fleet.placement()
+        out["spread_after"] = _proc_spread(dict(ctl.loads), placement1, range(3))
+        history = fleet.history()
+        out["rebalance_moves"] = sum(h[4] == "rebalance" for h in history)
+        out["rebalance_s"] = t_moved - t0
+        out["skew_appends"] = len(writer.history)
+        if out["rebalance_moves"] < 1 or not out["spread_after"] < out["spread_before"]:
+            raise AssertionError(f"10(a) rebalance: {out}")
+        log(f"10(a): {len(all_gids)} gids on 3 processes ({gpp} each, {spare} spare slots), "
+            f"ready {out['ready_s']:.2f} s, join of every gid {out['join_s']:.2f} s; skew on "
+            f"{len(hot)} hot gids of process 0: spread {out['spread_before']:.1f} -> "
+            f"{out['spread_after']:.1f} commits/s after {out['rebalance_moves']} rebalance "
+            f"move(s) ({out['rebalance_s']:.2f} s to the first) [{card}]")
+
+        # The nemesis: fault windows under clerk load (the skew goes on,
+        # with run_clerk_load on one key of every shard), then the kill of
+        # the process hosting the most groups at that moment.
+        obs.snapshot_all()  # caches every process's pid and clock offset
+        nem = Nemesis(addrs, kill=fleet.kill_mesh_process)
+        sched = make_schedule(7, 3, duration_s=nemesis_s,
+                              include=("delay", "drop", "sever", "partition"))
+        stop = threading.Event()
+        histories, errors = [], []
+        nkeys = _key_per_shard("nl")
+
+        def load() -> None:
+            try:
+                while not stop.is_set():
+                    histories.extend(run_clerk_load(fleet.clerk, keys=nkeys,
+                                                    n_workers=3, ops_per_worker=6,
+                                                    op_timeout=600.0))
+            except BaseException as e:  # re-raised below
+                errors.append(e)
+
+        def skewed() -> None:
+            try:
+                while not stop.is_set():
+                    skew(1)
+            except BaseException as e:  # re-raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=load, name="clerk-load"),
+                   threading.Thread(target=skewed, name="skew-load")]
+        for th in threads:
+            th.start()
+        prober = _Acked(fleet)
+        try:
+            t0 = time.perf_counter()
+            nem.run(sched, verify=False)
+            out["nemesis_s"] = time.perf_counter() - t0
+            _, pl = fleet.placement()
+            counts = {p: sum(1 for q in pl.values() if q == p) for p in range(3)}
+            victim = max(range(3), key=lambda p: (counts[p], p))
+            victim_pid = fleet.cluster.procs[victim].pid
+            t_kill = time.perf_counter()
+            nem.run([(0.0, "kill_mesh_process", {"proc": victim}), (0.05, "heal", {})],
+                    verify=False)
+            # The victim's gids: those the committed map places there at
+            # the kill (nothing moves off a dead process but by failover).
+            _, pl = fleet.placement()
+            victim_gids = sorted(g for g, q in pl.items() if q == victim)
+            log(f"10(a): kill of process {victim} ({len(victim_gids)} gids) after "
+                f"{out['nemesis_s']:.1f} s of nemesis [{card}]")
+            t_log, t_detect = t_kill, None
+            while time.perf_counter() - t_kill < 900:
+                if t_detect is None and victim in ctl.dead:
+                    t_detect = time.perf_counter()
+                _, placement, pending, _ = fleet.pmap.query()
+                left = [g for g in victim_gids if placement.get(g) in (None, victim)]
+                if not pending and not left:
+                    break
+                if time.perf_counter() - t_log > 15:
+                    t_log = time.perf_counter()
+                    log(f"10(a): {len(victim_gids) - len(left)} of {len(victim_gids)} "
+                        f"re-placed at {t_log - t_kill:.1f} s [{card}]")
+                time.sleep(0.25)
+            t_placed = time.perf_counter()
+            t_detect = t_placed if t_detect is None else t_detect
+            log(f"10(a): victim declared dead {t_detect - t_kill:.2f} s after the kill, every "
+                f"victim gid placed in {t_placed - t_kill:.2f} s [{card}]")
+            # A live process declared dead (its pings lost for dead_s) is
+            # fenced by its lapsed lease before its groups move: safe, but
+            # recorded.
+            false_dead = sorted(p for p in ctl.dead if p != victim)
+            survivors = [p for p in range(3) if p != victim and p not in false_dead]
+            if any(placement[g] == victim for g in victim_gids):
+                raise AssertionError(f"10(a): victim gids still on process {victim}")
+            # Serving: every re-placed gid is hosted, unsealed and led on
+            # its new process; each shard owner among them takes a Put/Get.
+            for p in survivors:
+                grp = tr.groups(p)
+                led = {gid: lead >= 0 for gid, lead in zip(grp["gids"], grp["leader"])}
+                moved_here = [g for g in victim_gids if placement[g] == p]
+                if not all(g in grp["gids"] and led.get(g) for g in moved_here):
+                    raise AssertionError(f"10(a): a re-placed gid has no leader on {p}")
+                if any(grp["sealed"][grp["gids"].index(g)] for g in moved_here):
+                    raise AssertionError(f"10(a): a re-placed gid is sealed on {p}")
+            served = [g for g in victim_gids if g in owners]
+            for g in served:
+                k = next(_k(f"sv{g}-", i) for i in range(NSHARDS)
+                         if shards[key2shard(_k(f"sv{g}-", i))] == g)
+                prober.append(k, "post,")
+                got = prober.ck.get(k, timeout=600.0)
+                if got != prober.model[k]:
+                    raise AssertionError(f"10(a): gid {g} serves {k} = {got!r}, "
+                                         f"acknowledged {prober.model[k]!r}")
+            t_served = time.perf_counter()
+            log(f"10(a): {len(served)} re-placed shard owners served a Put/Get "
+                f"{t_served - t_kill:.2f} s after the kill [{card}]")
+            # The scenario ends here: the controller stops, so the bundle
+            # holds the run up to the failover and not the moves of a
+            # later rebalance.
+            ctl.stop()
+        finally:
+            stop.set()
+            for th in threads:
+                th.join(timeout=600)
+        if errors or any(th.is_alive() for th in threads):
+            raise AssertionError(f"10(a) clerk load: {errors or 'hung'}")
+        nem.verify_windows()
+        n_win = len([w for w in nem.windows if w["kind"] not in ("heal",)])
+        hist = writer.history + prober.history + histories
+        lost = writer.lost() + prober.lost()
+        prober.close()
+        reader = fleet.clerk()
+        try:
+            vals = {k: reader.get(k, timeout=120.0) for k in nkeys}
+        finally:
+            reader.close()
+        from multiraft_tpu_torch.porcupine.kv import OP_APPEND
+
+        # Every batch of run_clerk_load appends the same tags: each must
+        # be in its key as many times as it was acknowledged there.
+        acked = {}
+        for op in histories:
+            if op.input.op == OP_APPEND:
+                kt = (op.input.key, op.input.value)
+                acked[kt] = acked.get(kt, 0) + 1
+        lost += sum(vals[k].count(tag) != n for (k, tag), n in acked.items())
+        out.update(
+            victim=victim, victim_gids=len(victim_gids), served_owner_gids=served,
+            failover_replace_s=t_served - t_kill, durable_failover_s=t_placed - t_kill,
+            detect_s=t_detect - t_kill, false_dead=false_dead,
+            s_per_group=(t_placed - t_detect) / max(1, len(victim_gids)),
+            lost_acked_writes=lost, acked_keys=len(writer.model) + len(vals),
+            nemesis_windows=n_win, windows_hit=sum(1 for w in nem.windows if w.get("hits")),
+            clerk_ops=len(hist),
+        )
+        if lost:
+            raise AssertionError(
+                f"10(a): {lost} acknowledged writes lost; writer "
+                f"{writer.lost()}, controller "
+                f"{dict(fleet.node.obs.metrics.counters)}; victim gids {len(victim_gids)}")
+        try:
+            out["porcupine"] = _porcupine(hist, "10(a) placed fleet")
+        except AssertionError:
+            # Keep the failing history beside the bundle for the checker's
+            # visualizer.
+            with open(os.path.join(root, "history.json"), "w") as f:
+                json.dump([(op.client_id, op.input.op, op.input.key, op.input.value,
+                            op.call, op.output.value, op.ret) for op in hist], f)
+            raise
+        snaps = obs.snapshot_all()
+        ship = {}
+        for s in snaps.values():  # the survivors' counters
+            for name in ("ship.snapshots", "ship.tail_records", "ship.bytes",
+                         "ship.recoveries", "ship.rejects"):
+                ship[name] = ship.get(name, 0) + (s.get("metrics") or {}).get(name, 0)
+        out["ship"] = ship
+        out["place_counters"] = {k: v for k, v in fleet.node.obs.metrics.counters.items()
+                                 if k.startswith("place.")}
+        log(f"10(a): nemesis seed 7 over {out['nemesis_s']:.1f} s, {n_win} windows "
+            f"({out['windows_hit']} with hits), every window verified; kill of process "
+            f"{victim} ({len(victim_gids)} gids): placed in {out['durable_failover_s']:.2f} s "
+            f"({out['s_per_group'] * 1e3:.1f} ms per group after the {out['detect_s']:.2f} s "
+            f"detection; live processes declared dead {false_dead}), serving in {out['failover_replace_s']:.2f} s ({len(served)} shard "
+            f"owners took a Put/Get); lost acked writes {lost} of {out['acked_keys']} keys; "
+            f"porcupine {json.dumps(out['porcupine'])}; ship {json.dumps(ship)}; controller "
+            f"{json.dumps(out['place_counters'])} [{card}]")
+
+        # The black box: bundle, then the doctor.
+        rec = flightrec.get_recorder()
+        if rec is not None:
+            rec.flush()
+        bdir = collect_bundle(os.path.join(root, "bundle"), observer=obs,
+                              reason="phase 10(a) kill", windows=nem.windows, t0_us=nem.t0_us)
+        bundle = postmortem.load_bundle(bdir)
+        analysis = postmortem.analyze(bundle)
+        report = postmortem.build_report(bundle, analysis)
+        with open(os.path.join(bdir, "report.txt"), "w") as f:
+            f.write(report)
+        dead = [p for p in analysis["procs"] if p["pid"] == victim_pid]
+        if not dead or dead[0]["clean_close"]:
+            raise AssertionError("10(a) doctor: the killed process is not an unclean death")
+        if f"{dead[0]['label']}  (pid {victim_pid})  — UNCLEAN DEATH" not in report:
+            raise AssertionError("10(a) doctor: the report does not name the death")
+        places = {}
+        for ring in bundle["rings"]:
+            for r in ring["records"]:
+                if r["type"] == flightrec.PLACE and r["tag"] == "failover":
+                    places[r["code"]] = r
+        missing = [g for g in victim_gids if g not in places]
+        if missing:
+            raise AssertionError(f"10(a) doctor: no PLACE failover record for {missing[:5]}")
+        kinds = sorted({a["kind"] for a in analysis["anomalies"]})
+        if "placement_thrash" in kinds:
+            raise AssertionError("10(a) doctor: placement thrash: " + "; ".join(
+                a["detail"] for a in analysis["anomalies"] if a["kind"] == "placement_thrash")
+                + f"; history {fleet.history()}")
+        out["doctor"] = dict(anomalies=kinds, failover_records=len(places),
+                             rings=len(bundle["rings"]))
+        log(f"10(a): bundle of {len(bundle['rings'])} rings; the doctor names pid "
+            f"{victim_pid} an UNCLEAN DEATH, {len(places)} PLACE failover records (one per "
+            f"victim gid), anomalies {kinds}, no placement thrash [{card}]")
+    finally:
+        if writer is not None:
+            writer.close()
+        if obs is not None:
+            obs.close()
+        fleet.shutdown()
+        os.environ.pop("MRT_FLIGHTREC_DIR", None)
+        rec = flightrec._proc_rec
+        if rec is not None:
+            rec.close()
+    return out
+
+
+def placed_selfheal(card: str, device: str = "cuda", gpp: int = 64) -> dict:
+    """10(b): a dead leader replica healed by joint consensus under
+    acknowledged writes, then again with the controller crashed
+    mid-reconfig and a fresh one resuming from the replicated intent."""
+    import shutil
+
+    from multiraft_tpu_torch.distributed.placement import PlacementController
+    from multiraft_tpu_torch.harness.fleet import PlacedFleet
+
+    root = os.path.join(SCRATCH, "selfheal")
+    shutil.rmtree(root, ignore_errors=True)
+    assignment = [[p * gpp + j + 1 for j in range(gpp)] for p in range(3)]
+    fleet = PlacedFleet(assignment, spare_slots=1, seed=29, replicas=4, voters=[0, 1, 2],
+                        shipping=True, data_dir=os.path.join(root, "data"), device=device,
+                        controller_kwargs=HEAL_KNOBS, map_maxraftstate=MAP_MAXRAFTSTATE)
+    out = {"gids": 3 * gpp}
+    writer = None
+    try:
+        fleet.start()
+        fleet.admin("join", [g for gl in assignment for g in gl], timeout=300.0)
+        tr = fleet.controller.transport
+        shards = _rpc(fleet.node, fleet.node.client_end(*tr.addrs[0]), "EngineShardKV.config")[1]
+        kmap = _keys_by_gid(shards)
+        writer = _Acked(fleet)
+        owners = sorted(set(kmap.values()))
+        for i, k in enumerate(list(kmap)[:20]):
+            writer.append(k, f"w{i},")
+        runs = []
+        for crash, gid in ((False, owners[0]), (True, owners[-1])):
+            _, placement = fleet.placement()
+            proc = placement[gid]
+            cfg0 = None
+            while cfg0 is None:
+                cfg0 = tr.replica_config(proc, gid)
+            victim = int(cfg0["peer"])
+            keys = [k for k, g in kmap.items() if g == gid][:4]
+            t_kill = time.perf_counter()
+            if not fleet.kill_replica(gid, victim):
+                raise AssertionError(f"10(b): kill_replica({gid}, {victim}) refused")
+            crashed_at, cfg, n = None, None, 0
+            while time.perf_counter() - t_kill < 240:
+                writer.append(keys[n % len(keys)], f"d{gid}.{n},")  # acked-write load
+                n += 1
+                intents = fleet.pmap.reconfig_intents()
+                if crash and crashed_at is None and gid in intents:
+                    crashed_at = intents[gid][2]
+                    fleet.controller.stop()  # abandoned with its in-memory ledgers
+                    fleet.controller = PlacementController(tr, fleet.pmap, obs=fleet.node.obs,
+                                                           **HEAL_KNOBS)
+                    fleet.controller.start()
+                    continue
+                if gid not in intents:
+                    cfg = tr.replica_config(proc, gid)
+                    if cfg is not None and not cfg["joint"] and victim not in cfg["voters_old"]:
+                        break
+                    cfg = None
+            t_healed = time.perf_counter()
+            if cfg is None:
+                raise AssertionError(f"10(b): gid {gid} never healed")
+            entries = [h for h in fleet.history() if h[4] == "replace-replica" and h[1] == gid]
+            if len(entries) != 1 or cfg["voters_old"] != sorted({0, 1, 2, 3} - {victim}):
+                raise AssertionError(f"10(b): gid {gid} history {entries}, config {cfg}")
+            stats = fleet.controller.replace_stats.get(gid)
+            run = dict(gid=gid, killed_peer=victim, crash=crash, crashed_at=crashed_at,
+                       healed_voters=cfg["voters_old"], writes_during=n,
+                       kill_to_healed_s=t_healed - t_kill)
+            if stats is not None:
+                run.update(stats)
+            elif not crash:
+                raise AssertionError("10(b): no replace stats")
+            if crash and crashed_at not in ("learner", "catchup", "joint"):
+                raise AssertionError(f"10(b): the controller crashed at {crashed_at!r}")
+            runs.append(run)
+        out["runs"] = runs
+        out["lost_acked_writes"] = writer.lost()
+        out["acked_keys"] = len(writer.model)
+        if out["lost_acked_writes"]:
+            raise AssertionError(f"10(b): {out['lost_acked_writes']} acknowledged writes lost")
+        out["porcupine"] = _porcupine(writer.history, "10(b) self-heal")
+        for r in runs:
+            log(f"10(b): gid {r['gid']} leader replica {r['killed_peer']} killed"
+                + (f", controller crashed at {r['crashed_at']!r} and a fresh one resumed"
+                   if r["crash"] else "")
+                + f": healed voters {r['healed_voters']} in {r['kill_to_healed_s']:.2f} s"
+                + (f" (replace_replica_s {r['replace_replica_s']:.2f}, degraded_quorum_window_s "
+                   f"{r['degraded_quorum_window_s']:.2f})" if "replace_replica_s" in r else "")
+                + f", {r['writes_during']} acked writes meanwhile [{card}]")
+        log(f"10(b): {3 * gpp} gids, P=4 voters [0,1,2]; lost acked writes 0 of "
+            f"{out['acked_keys']} keys; porcupine {json.dumps(out['porcupine'])} [{card}]")
+    finally:
+        if writer is not None:
+            writer.close()
+        fleet.shutdown()
+    return out
+
+
+def _fleet_world(fleet, store) -> dict:
+    """Everything the in-process fleet holds: each live instance's state
+    planes, every replica's configs, shard data and dedup tables, and
+    the placement map."""
+    out = {"map": store.query(), "killed": sorted(fleet.killed)}
+    for p, inst in enumerate(fleet.instances):
+        if p in fleet.killed:
+            continue
+        out.update({f"{p}.s.{k}": v for k, v in inst.driver.np_state().items()})
+        out[f"{p}.gids"] = dict(inst._g2l)
+        out[f"{p}.reps"] = {g: (r.cur.num, {s: (sl.state, dict(sl.data), dict(sl.latest))
+                                            for s, sl in r.shards.items()})
+                            for g, r in inst.reps.items()}
+    return out
+
+
+def _inproc_legs(device: str, gpp: int, mark) -> None:
+    """The fixed migration script on an ``InProcessFleet``: a live
+    migration, a replica replacement, a durable recovery from a
+    standby and an empty adoption after the kill; ``mark(where,
+    world)`` after every leg."""
+    from multiraft_tpu_torch.distributed.placement import LocalPlacementStore, PlacementController
+    from multiraft_tpu_torch.distributed.stateplane import ShipSpec
+    from multiraft_tpu_torch.harness.fleet import InProcessFleet, LocalFleetTransport
+
+    assignment = [[p * gpp + j + 1 for j in range(gpp)] for p in range(3)]
+    fleet = InProcessFleet(assignment, spare_slots=gpp, seed=5, replicas=4, voters=[0, 1, 2],
+                           device=device)
+    for gl in assignment:
+        fleet.admin("join", gl)
+    fleet.settle()
+    pinned = assignment[2][-1]  # ships to its own owner only: never shipped
+    fleet.enable_shipping([(f"gid-{pinned}$", ShipSpec(pin=(2,)))], window_s=0.0, sync=True)
+    store = LocalPlacementStore({g: p for p, gl in enumerate(assignment) for g in gl})
+    clock = [0.0]
+    tr = LocalFleetTransport(fleet)
+    ctl = PlacementController(tr, store, dead_s=1.0, min_gain=1e9, max_moves=0,
+                              clock=lambda: clock[0])
+    ck = fleet.clerk()
+    cfg = fleet.instances[0].query_latest()
+    kmap = _keys_by_gid(cfg.shards, 60)
+    for i, k in enumerate(kmap):
+        ck.append(k, f"[{i}]")
+    fleet.pump_all(4)
+    mark("writes", _fleet_world(fleet, store))
+    g = assignment[0][0]
+    store.begin(g, 1, "test")
+    if not ctl._execute(g, 0, 1, "test", [0, 1, 2]):
+        raise AssertionError("10(c): live migration did not run")
+    mark("live migration", _fleet_world(fleet, store))
+    gid = cfg.shards[0]
+    proc = fleet.proc_of(gid)
+    victim = tr.replica_config(proc, gid)["peer"]
+    fleet.kill_replica(gid, victim)
+    for _ in range(120):
+        clock[0] += 0.5
+        ctl.step()
+        fleet.pump_all(6)
+        c = tr.replica_config(proc, gid)
+        if not store.reconfig_intents() and c and not c["joint"] and victim not in c["voters_old"]:
+            break
+    else:
+        raise AssertionError("10(c): the replica was not replaced")
+    mark("replica replacement", _fleet_world(fleet, store))
+    fleet.kill(2)
+    ctl.dead.add(2)
+    for leg, gids in (("durable recovery", [x for x in assignment[2] if x != pinned]),
+                      ("empty adoption", [pinned])):
+        for x in gids:
+            dst = ctl._freshest_dst(x, [0, 1], x % 2)
+            store.begin(x, dst, "failover")
+            if not ctl._execute(x, None, dst, "failover", [0, 1]):
+                raise AssertionError(f"10(c): {leg} of gid {x} did not run")
+        mark(leg, _fleet_world(fleet, store))
+    for k, v in list(kmap.items())[:12]:
+        ck.put(k, f"post-{v}")
+    mark("serving", _fleet_world(fleet, store))
+
+
+def inproc_card_vs_cpu(card: str, sizes=((3, 2), (3, 64))) -> dict:
+    """10(c): the same in-process fleet script on the card and on the
+    CPU; after every leg both hold equal planes, data, dedup tables and
+    placement maps."""
+    out = {}
+    for n, gpp in sizes:
+        worlds = {}
+        t0 = time.perf_counter()
+        for dev in ("cuda", "cpu"):
+            worlds[dev] = []
+            _inproc_legs(dev, gpp, lambda where, w, dev=dev: worlds[dev].append((where, w)))
+        legs = [w for w, _ in worlds["cuda"]]
+        if legs != [w for w, _ in worlds["cpu"]]:
+            raise AssertionError(f"10(c): legs differ {legs}")
+        for (where, a), (_, b) in zip(worlds["cuda"], worlds["cpu"]):
+            _same_state(a, b, f"{n}x{gpp} {where}")
+        out[f"{n}x{gpp}"] = dict(legs=legs, s=time.perf_counter() - t0)
+        log(f"10(c): InProcessFleet {n} x {gpp} gids: card = CPU after each of {legs} "
+            f"({out[f'{n}x{gpp}']['s']:.2f} s) [{card}]")
+    return out
+
+
+def phase_placed(card: str, kernels) -> dict:
+    """Phase 10: each sub-phase with the launch counts set to 0 just
+    before it and read just after.  The fleet servers are child
+    processes that build their engines without the kernels, as the
+    reference's do, and the in-process fleets are built without them
+    too, so the counts stay 0."""
+    out = {}
+    for name, fn in (("10a", placed_failover), ("10b", placed_selfheal),
+                     ("10c", inproc_card_vs_cpu)):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out[name] = fn(card)
+        out[name]["phase_s"] = time.perf_counter() - t0
+        out[name]["launches"] = dict(kernels.LAUNCHES)
+        log(f"{name}: launches {out[name]['launches']}, {out[name]['phase_s']:.2f} s [{card}]")
+        if max(kernels.LAUNCHES.values()) > 0:
+            raise AssertionError(f"{name}: launches in this process {kernels.LAUNCHES}")
+    return out
+
+
+def placed_alone(card: str, names) -> dict:
+    """``--only 10a 10b 10c``: the named sub-phases of phase 10 alone, with
+    the time the controller spends in each transport and map verb (a
+    development run; it prints no contract lines)."""
+    import collections
+
+    from multiraft_tpu_torch.distributed.placement import PlacementController, TcpFleetTransport
+    from multiraft_tpu_torch.harness.fleet import PlacementMap
+
+    spent, calls = collections.defaultdict(float), collections.Counter()
+
+    def timed(cls, name):
+        fn = getattr(cls, name)
+
+        def wrapper(self, *a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *a, **k)
+            finally:
+                spent[name] += time.perf_counter() - t0
+                calls[name] += 1
+        setattr(cls, name, wrapper)
+
+    for name in ("recover_group", "standby_state", "adopt_group", "pull_group", "drop_group",
+                 "push_placement", "lease", "groups"):
+        timed(TcpFleetTransport, name)
+    for name in ("begin", "dispatch", "commit", "query"):
+        timed(PlacementMap, name)
+    timed(PlacementController, "step")
+    fns = {"10a": placed_failover, "10b": placed_selfheal, "10c": inproc_card_vs_cpu}
+    out = {}
+    for name in names:
+        spent.clear()
+        calls.clear()
+        t0 = time.perf_counter()
+        out[name] = fns[name](card)
+        out[name]["phase_s"] = time.perf_counter() - t0
+        out[name]["verb_s"] = {k: [spent[k], calls[k]] for k in spent}
+        log(f"{name}: {json.dumps(out[name], default=str)} [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3162,6 +3756,9 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from multiraft_tpu_torch.engine import kernels
 
+    if sys.argv[1:2] == ["--only"]:
+        placed_alone(card_line(), sys.argv[2:] or ["10a", "10b", "10c"])
+        return 0
     t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
@@ -3197,6 +3794,9 @@ def main() -> int:
     t0 = time.perf_counter()
     verified = phase_verify(card, kernels)
     log(f"verify: phase 9 in {time.perf_counter() - t0:.2f} s [{card}]")
+    t0 = time.perf_counter()
+    placed = phase_placed(card, kernels)
+    log(f"placed: phase 10 in {time.perf_counter() - t0:.2f} s [{card}]")
 
     line = []
     for name in ("quorum_commit", "vote_tally"):
@@ -3229,6 +3829,7 @@ def main() -> int:
     log(f"served: {json.dumps(served)} [{card}]")
     log(f"shard served: {json.dumps(shard_served)} [{card}]")
     log(f"verified: {json.dumps(verified)} [{card}]")
+    log(f"placed: {json.dumps(placed)} [{card}]")
     log(f"total: {time.perf_counter() - t_start:.1f} s [{card}]")
     log(json.dumps({"kernels": line}))
     print(json.dumps({

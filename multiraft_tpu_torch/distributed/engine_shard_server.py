@@ -183,6 +183,19 @@ class EngineShardKVService:
         # receive other owners' shipments into a StandbyStore.  Wired
         # only in fleet mode with the fleet roster known.
         self._plane = None
+        # gids adopted by recover_group whose shipped tail is still
+        # replaying: their clients are told ErrWrongGroup until the
+        # replay ends (_recovering_key).  The reference serves them
+        # from the snapshot meanwhile (ROADMAP queue C).
+        self._recovering: set = set()
+        # The placement controller's fencing lease (grant_lease): None
+        # until a controller grants one, then the CLOCK_MONOTONIC
+        # deadline past which this process answers no client op.  A
+        # process the controller declares dead gets no more grants, so
+        # it has stopped acking and reading before any of its groups is
+        # re-placed (PlacementController._lease_ran_out).  The reference
+        # has no fence (ROADMAP queue C).
+        self._lease_until: Optional[float] = None
         self._standby = None
         self._ship_futs: dict = {}  # proc -> in-flight ship Future
         self._ship_ends: dict = {}
@@ -201,6 +214,7 @@ class EngineShardKVService:
                     if durability is not None else None
                 ),
                 obs=self._obs, recorder=flightrec.get_recorder(),
+                poll=self._ship_poll,
             )
             # Attach AFTER the durability on_write hook above, so the
             # WAL record exists (wal.appended names it) when the plane
@@ -469,6 +483,13 @@ class EngineShardKVService:
                     return (SK_OK,)
                 if self.skv.group_quiesced(gid):
                     self.skv.drop_gid(gid)
+                    if self._plane is not None:
+                        # Its capture state goes too, as the in-process
+                        # fleet does it (LocalFleetTransport.drop_group):
+                        # the export blob carried its writes, and a
+                        # write still awaiting coverage would otherwise
+                        # hold every later ack here behind the sync gate.
+                        self._plane.forget_group(gid)
                     self._rebuild_peers()  # route it to its new owner
                     self.m.inc("place.drops")
                     return (SK_OK,)
@@ -489,12 +510,15 @@ class EngineShardKVService:
         return self._standby.receive(payload)
 
     def standby_state(self, args):
-        """Freshness of the local standby state for ``gid`` (None when
-        holding nothing) — the controller's recovery-destination probe."""
+        """Freshness of the local standby state for ``gid`` (``"none"``
+        when holding nothing) — the controller's recovery-destination
+        probe.  The reference answers None for nothing, which a dropped
+        or timed-out probe also reads as; the port's controller tells
+        the two apart (``TcpFleetTransport.standby_state``), and the
+        reference's reads any non-dict as nothing."""
         gid = args[0] if isinstance(args, (tuple, list)) else args
-        if self._standby is None:
-            return None
-        return self._standby.freshness(gid)
+        f = self._standby.freshness(gid) if self._standby is not None else None
+        return "none" if f is None else f
 
     def recover_group(self, args):
         """Stateful failover: adopt ``gid`` from the LOCAL standby store
@@ -522,16 +546,71 @@ class EngineShardKVService:
                     return (SK_OK, "empty")
                 if self.skv.free_slots() <= 0:
                     return (self.ERR_NO_SLOT,)
+                self._recovering.add(gid)
                 self.skv.adopt_gid(gid, blob)
                 self.peers.pop(gid, None)  # it's local now
                 self.m.inc("place.adoptions")
             if tail:
+                # A replay that raises leaves the gid fenced: the
+                # controller's retry replays the tail again (dedup makes
+                # that exactly-once) and lifts the fence then.
                 yield from iter_replay_tail(self.skv, gid, tail)
+            self._recovering.discard(gid)
             self._standby.drop(gid)
             self.m.inc("ship.recoveries")
             return (SK_OK, "recovered")
 
         return run()
+
+    def grant_lease(self, kind: str, deadline: Optional[float]):
+        """The controller's fencing lease (``Obs.ping`` carries it; see
+        ObsControl.ping): ``"grant"`` extends the deadline to
+        ``deadline`` (never shortens it), ``"release"`` lifts the fence
+        (a controller stopping on purpose), ``"query"`` changes
+        nothing.  Returns the deadline held, or None when unfenced; a
+        server outside a fleet holds none and answers None."""
+        if not self._fleet:
+            return None
+        if kind == "grant" and deadline is not None:
+            held = self._lease_until
+            self._lease_until = (
+                float(deadline) if held is None
+                else max(held, float(deadline))
+            )
+        elif kind == "release":
+            self._lease_until = None
+        return self._lease_until
+
+    def _fenced(self) -> bool:
+        """True once a granted lease has run out: every client op is
+        then answered ErrWrongGroup (and no placement view is served),
+        so the clerks re-route to the groups' new owners."""
+        if self._lease_until is None or time.monotonic() < self._lease_until:
+            return False
+        self.m.inc("place.fenced_ops")
+        return True
+
+    def _recovering_key(self, key: str) -> bool:
+        """True while ``key``'s group replays its shipped tail here: a
+        read or a new write then would see or land before the acked
+        writes of the tail."""
+        if not self._recovering:
+            return False
+        from ..services.shardkv import key2shard
+
+        return self.skv.query_latest().shards[key2shard(key)] in self._recovering
+
+    def _ship_poll(self, proc: int):
+        """StatePlane poll hook: ``(in_flight, reply)`` of the ship RPC
+        to ``proc``; a completed reply is handed over once."""
+        fut = self._ship_futs.get(proc)
+        if fut is None:
+            return False, None
+        if not fut.done:
+            return True, None
+        del self._ship_futs[proc]
+        v = fut.value
+        return False, (v if isinstance(v, dict) else None)
 
     def _ship_send(self, proc: int, payload: bytes):
         """StatePlane delivery hook: ONE in-flight ship RPC per standby,
@@ -577,12 +656,23 @@ class EngineShardKVService:
                 {int(g): (a[0], int(a[1])) for g, a in pmap.items()},
             )
             self._rebuild_peers()
+            if self._plane is not None:
+                # A fleet process that hosts no gid in the committed
+                # map is gone (the controller re-placed all it held):
+                # stop shipping to it (StatePlane.set_live).
+                hosts = set(self._placement[1].values())
+                self._plane.set_live(
+                    p for p, a in self._fleet_addrs.items()
+                    if (a[0], int(a[1])) in hosts
+                )
             self.m.inc("place.pushes")
         return (SK_OK, self._placement[0])
 
     def placement(self, args=None):
         """Current placement view ``(version, {gid: (host, port)})`` —
         the fleet clerk's re-route source after ErrWrongGroup."""
+        if self._fenced():
+            return None  # a fenced view may be stale: ask another
         ver, pmap = self._placement
         return (ver, {g: tuple(a) for g, a in pmap.items()})
 
@@ -720,6 +810,11 @@ class EngineShardKVService:
                     self.sched, self._dur, self._write_seqs, f, err,
                     deadline,
                 )
+            if self._fenced():
+                # Past the controller's lease: no row is acknowledged
+                # or read here; the client re-routes every one.
+                err[:] = FH_WRONG_GROUP
+                return pack_reply(err, [b""] * len(f))
             # Shards whose write rows did not land OK: gets there mirror
             # the write outcome so the client re-frames them together.
             bad_shard_err: dict = {}
@@ -907,8 +1002,12 @@ class EngineShardKVService:
                 gid = cfg.shards[key2shard(a.key)]
                 if gid not in self.skv.reps:
                     return None  # peer-owned (or unassigned) shard
-                if self._fleet and self.skv.is_sealed(gid):
-                    return None  # mid-placement-migration: re-route
+                if self._fleet and (self.skv.is_sealed(gid)
+                                    or gid in self._recovering
+                                    or self._fenced()):
+                    # Mid-migration or -recovery, or past the lease:
+                    # re-route.
+                    return None
                 return self.skv.submit(
                     gid, a.op, a.key, a.value,
                     client_id=a.client_id, command_id=a.command_id,
@@ -959,8 +1058,16 @@ class EngineShardKVService:
                 self.sched, self._dur, self._write_seqs, ok,
                 args_list, deadline,
             )
+            fenced = self._fenced()
             for i, a in enumerate(args_list):
-                if a.op == "Get":
+                if a.op != "Get" and fenced and i in ok:
+                    # Committed, but past the lease: not acknowledged
+                    # here (the clerk's retry at the new owner dedups).
+                    replies[i] = EngineCmdReply(err=ERR_WRONG_GROUP)
+                elif a.op == "Get":
+                    if fenced or self._recovering_key(a.key):
+                        replies[i] = EngineCmdReply(err=ERR_WRONG_GROUP)
+                        continue
                     t = self.skv.get_fast(a.key)
                     if t.err == ERR_WRONG_GROUP:
                         replies[i] = EngineCmdReply(err=ERR_WRONG_GROUP)
@@ -994,6 +1101,8 @@ class EngineShardKVService:
             def run_get():
                 deadline = self.sched.now + self.DEADLINE_S
                 while self.sched.now < deadline:
+                    if self._fenced() or self._recovering_key(args.key):
+                        return EngineCmdReply(err=ERR_WRONG_GROUP)
                     t = self.skv.get_fast(args.key)
                     if t.err == ERR_WRONG_GROUP:
                         # Fleet: the owner is (probably) another
@@ -1027,10 +1136,14 @@ class EngineShardKVService:
                         return EngineCmdReply(err=ERR_WRONG_GROUP)
                     yield 0.01  # shard unassigned; config still moving
                     continue
-                if self._fleet and self.skv.is_sealed(gid):
+                if self._fleet and (self.skv.is_sealed(gid)
+                                    or gid in self._recovering
+                                    or self._fenced()):
                     # Mid-placement-migration: every apply would be a
                     # WRONG_GROUP no-op — tell the clerk NOW so it
                     # refreshes placement and retries at the adopter.
+                    # Mid-recovery: the tail has not replayed yet.
+                    # Fenced: the lease ran out.
                     return EngineCmdReply(err=ERR_WRONG_GROUP)
                 t = self.skv.submit(
                     gid, args.op, args.key, args.value,
@@ -1075,6 +1188,11 @@ class EngineShardKVService:
                     if seq is None or self._dur.synced(seq):
                         break
                     yield 0.002
+                if self._fenced():
+                    # Committed, but the lease ran out before the ack:
+                    # the group may already serve elsewhere, without
+                    # this write; the clerk's retry there applies it.
+                    return EngineCmdReply(err=ERR_WRONG_GROUP)
                 self.m.observe("kv.command_s", self.sched.now - t_start)
                 if rid is not None:
                     self.obs.tracer.instant(

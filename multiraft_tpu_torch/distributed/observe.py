@@ -271,7 +271,17 @@ class ObsControl:
             kv = getattr(svc, "skv", None)
         return kv
 
-    def ping(self, args: Any = None) -> str:
+    def ping(self, args: Any = None) -> Any:
+        """``"pong"``.  A placement controller's lease verb rides it,
+        exempt from chaos as every control frame: ``("lease", kind,
+        deadline)`` (EngineShardKVService.grant_lease) answers
+        ``("pong", held)`` from a fleet shard server; every other
+        server, the reference's among them, answers ``"pong"``."""
+        if isinstance(args, tuple) and len(args) == 3 and args[0] == "lease":
+            svc = getattr(self._node, "engine_service", None)
+            grant = getattr(svc, "grant_lease", None)
+            if grant is not None and getattr(svc, "_fleet", False):
+                return ("pong", grant(args[1], args[2]))
         return "pong"
 
     def clock(self, args: Any = None) -> float:

@@ -220,6 +220,14 @@ class StatePlane:
     payload↔reply pairing.  The full tail since the last shipped
     snapshot is retained owner-side, so any standby can always be
     caught up or re-based on a fresh snapshot.
+
+    With an async hook the port also takes ``poll(proc) -> (in_flight,
+    reply)``: each round first folds every standby's completed reply
+    under the gid it names, ships first the groups whose writes await
+    coverage, and builds no payload for a standby whose RPC still
+    flies.  The reference folds a reply only when it happens to name
+    the group shipped next, so with many groups most acks waited for a
+    resend (ROADMAP queue C).
     """
 
     def __init__(
@@ -238,12 +246,21 @@ class StatePlane:
         obs=None,
         recorder=None,
         clock=time.monotonic,
+        poll: Optional[
+            Callable[[int], Tuple[bool, Optional[dict]]]
+        ] = None,
     ) -> None:
         k = ship_knobs()
         self.skv = skv
         self.me = me
         self.n_procs = n_procs
         self.send = send
+        self.poll = poll
+        # Poll mode: standbys whose ship RPC flies this round, and
+        # what each in-flight payload carried (gid, kind, records,
+        # bytes), counted when its reply comes back.
+        self._busy: set = set()
+        self._flying: Dict[int, tuple] = {}
         self.rules = list(rules or [])
         self.labels = dict(labels or {})
         self.window_s = k["window_s"] if window_s is None else window_s
@@ -258,6 +275,12 @@ class StatePlane:
         # Unique per incarnation: standbys key freshness on it so a
         # previous owner's stale tail never outranks the live owner's.
         self.token = f"{me}.{os.urandom(6).hex()}"
+        # gid -> how many times this process stopped hosting it
+        # (forget_group).  A group hosted here again ships under a new
+        # token (_token), so no standby mixes its fresh sequence numbers
+        # with those of an earlier stay: a frontier acked then would
+        # otherwise cover writes never shipped.
+        self._stays: Dict[int, int] = {}
         # Per-gid capture state.
         self._tail_seq: Dict[int, int] = {}       # last captured seq
         self._tail: Dict[int, deque] = {}         # (seq, record, wal_seq)
@@ -283,6 +306,13 @@ class StatePlane:
         self._t0 = self._clock()
         self._prev_on_write = None
         self.rounds = 0
+        # Processes still in the fleet (None: all n_procs).  The
+        # placement push narrows it once a dead process hosts nothing
+        # (set_live), so no group keeps a dead standby — under sync
+        # shipping one such group would hold every later ack of this
+        # process behind the global gate.  The reference has no such
+        # narrowing (ROADMAP queue C).
+        self.live_procs: Optional[set] = None
 
     # -- capture ---------------------------------------------------------
 
@@ -347,6 +377,11 @@ class StatePlane:
             d.pop(gid, None)
         for key in [k for k in self._acked_tail if k[0] == gid]:
             self._acked_tail.pop(key, None)
+        self._stays[gid] = self._stays.get(gid, 0) + 1
+
+    def _token(self, gid: int) -> str:
+        n = self._stays.get(gid, 0)
+        return self.token if not n else f"{self.token}.{n}"
 
     # -- sync-ship ack gate ---------------------------------------------
 
@@ -405,6 +440,13 @@ class StatePlane:
     def hosted_gids(self) -> List[int]:
         return [g for g in self.skv.gids if g != 0]
 
+    def set_live(self, procs) -> None:
+        """Choose standbys among ``procs`` (this process included) from
+        now on; a group whose standby left re-bases onto its next
+        candidate with a snapshot, which releases its unshipped writes
+        from the sync gate once acked."""
+        self.live_procs = set(int(p) for p in procs) | {self.me}
+
     def ship_round(self, now: Optional[float] = None) -> int:
         """One shipping sweep over every hosted group; returns payloads
         delivered.  Safe to call every pump — per-standby frontiers make
@@ -412,19 +454,54 @@ class StatePlane:
         now = self._clock() if now is None else now
         self.rounds += 1
         sent = 0
-        procs = list(range(self.n_procs))
-        for gid in list(self.hosted_gids()):
-            self.maybe_snapshot(gid, now)
+        procs = [
+            p for p in range(self.n_procs)
+            if self.live_procs is None or p in self.live_procs
+        ]
+        if self.poll is None:
+            order = list(self.hosted_gids())
+        else:
+            self._busy = set()
+            for p in procs:
+                flying, reply = self.poll(p)
+                if reply is not None:
+                    meta = self._flying.pop(p, None) or (None, "", 0, 0)
+                    sent += self._apply_reply(meta[0], p, reply, *meta[1:])
+                if flying:
+                    self._busy.add(p)
+            order = self._ship_order()
+        for gid in order:
             standbys = choose_standbys(
                 gid, self.me, procs, self.rules,
                 self.labels.get(gid, ""),
             )
+            if self.poll is not None:
+                standbys = [sb for sb in standbys if sb not in self._busy]
+                if not standbys:
+                    continue  # every channel it needs is in flight
+            self.maybe_snapshot(gid, now)
             for sb in standbys:
                 sent += self._ship_to(gid, sb, now)
         if self._obs is not None:
             lag = self.max_lag_s(now)
             self._obs.metrics.set("ship.lag_s", lag)
         return sent
+
+    def _ship_order(self) -> List[int]:
+        """Poll mode's sweep order: groups with writes awaiting coverage
+        first (they hold acks under sync shipping), the rest after;
+        each class starts at a point that rotates every round, so no
+        group waits behind the same ones every time."""
+        hosted = self.hosted_gids()
+        k = self.rounds % max(1, len(hosted))
+        rot = hosted[k:] + hosted[:k]
+        return sorted(rot, key=lambda g: 0 if self._unacked.get(g) else 1)
+
+    def _deliver(self, sb: int, payload: bytes, meta: tuple):
+        if self.poll is not None:
+            self._busy.add(sb)
+            self._flying[sb] = meta
+        return self.send(sb, payload)
 
     def _ship_to(self, gid: int, sb: int, now: float) -> int:
         have = self._acked_tail.get((gid, sb), -1)
@@ -435,7 +512,7 @@ class StatePlane:
             # tail, so only the snapshot can bridge it forward.
             payload = self._frame(gid, "snap", snap_seq,
                                   snap=self._snap[gid], now=now)
-            reply = self.send(sb, payload)
+            reply = self._deliver(sb, payload, (gid, "snap", 1, len(payload)))
             return self._apply_reply(gid, sb, reply, "snap", 1,
                                      len(payload))
         # Tail leg: records past the standby's acked frontier (all
@@ -449,7 +526,9 @@ class StatePlane:
             return 0
         payload = self._frame(gid, "tail", snap_seq or 0,
                               records=batch, now=now)
-        reply = self.send(sb, payload)
+        reply = self._deliver(
+            sb, payload, (gid, "tail", len(batch), len(payload))
+        )
         return self._apply_reply(gid, sb, reply, "tail", len(batch),
                                  len(payload))
 
@@ -461,11 +540,35 @@ class StatePlane:
         if not isinstance(reply, dict):
             return 0
         rg = reply.get("gid")
-        if rg is None or int(rg) != gid:
-            # A framing-level reject (no gid) or a reply answering some
-            # OTHER group's payload (the async hook hands back last
-            # round's reply) — never fold a foreign frontier in.
+        if rg is None:
+            return 0  # a framing-level reject names no group
+        rg = int(rg)
+        if self.poll is not None:
+            # Poll mode: fold the frontier under the gid the reply names
+            # while this process still hosts it; count the payload when
+            # the reply answers it.
+            if rg not in self.hosted_gids():
+                return 0
+            self._fold_have(rg, sb, reply)
+            if not reply.get("ok"):
+                return 0
+            if rg == gid:
+                self._record(gid, kind, n_records, n_bytes,
+                             int(reply.get("have", -1)))
+            return 1
+        if rg != gid:
+            # A reply answering some OTHER group's payload (the async
+            # hook hands back last round's reply) — never fold a
+            # foreign frontier in.
             return 0
+        self._fold_have(gid, sb, reply)
+        if reply.get("ok"):
+            self._record(gid, kind, n_records, n_bytes,
+                         int(reply.get("have", -1)))
+            return 1
+        return 0
+
+    def _fold_have(self, gid: int, sb: int, reply: dict) -> None:
         h = int(reply.get("have", -1))
         cur = self._acked_tail.get((gid, sb), -1)
         if h > cur:
@@ -476,10 +579,6 @@ class StatePlane:
             # token) — believe it, so the next round re-bases: a
             # frontier below snap_seq routes back to the snapshot leg.
             self._acked_tail[(gid, sb)] = h
-        if reply.get("ok"):
-            self._record(gid, kind, n_records, n_bytes, h)
-            return 1
-        return 0
 
     def _prune_unacked(self, gid: int) -> None:
         best = max(
@@ -504,7 +603,7 @@ class StatePlane:
                now: float = 0.0) -> bytes:
         msg = {
             "gid": gid,
-            "token": self.token,
+            "token": self._token(gid),
             "kind": kind,
             "snap_seq": snap_seq,
             "snap": snap,

@@ -74,6 +74,15 @@ KNOBS: Dict[str, Tuple[str, object]] = {
     "MRT_WEDGE_INTERVAL": ("float", 0.25),  # distributed.wedge
     "MRT_WEDGE_TICKS": ("int", 8),  # distributed.wedge
     "MRT_WEDGE_WATCH": ("bool", True),  # distributed.wedge
+    "MRT_CPUSAT_PERMILLE": ("int", 850),  # analysis.postmortem
+    "MRT_PLACE_COOLDOWN_S": ("float", 5.0),  # distributed.placement
+    "MRT_PLACE_DEAD_S": ("float", 3.0),  # distributed.placement
+    "MRT_PLACE_MAX_MOVES": ("int", 1),  # distributed.placement
+    "MRT_PLACE_MIN_GAIN": ("float", 0.25),  # distributed.placement
+    "MRT_PLACE_REPLACE": ("bool", True),  # distributed.placement
+    "MRT_PLACE_REPLACE_DEADLINE_S": ("float", 30.0),  # distributed.placement
+    "MRT_PLACE_SCRAPE_S": ("float", 0.5),  # distributed.placement
+    "MRT_POSTMORTEM_DIR": ("str", None),  # harness.nemesis
     "MRT_CHECK_QUORUM": ("bool", True),  # engine.core
     "MRT_MEMBERSHIP": ("bool", True),  # engine.core
     "MRT_PREVOTE": ("bool", True),  # engine.core

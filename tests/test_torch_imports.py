@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: nothing in ``multiraft_tpu_torch/`` or
-in ``chip_smoke.py`` imports JAX or the reference package, the whole
+in ``chip_smoke.py`` imports JAX, the reference package or the
+benchmarks tree (whose open-loop generator imports the reference), the whole
 package imports with JAX made unimportable, and an engine driver asked
 for no device in particular wants the card and refuses to run without
 one."""
@@ -39,7 +40,7 @@ def _imported_modules(path: Path):
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "multiraft_tpu")
+    return top in ("jax", "jaxlib", "multiraft_tpu", "benchmarks")
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
@@ -53,12 +54,28 @@ def test_forbidden_names_are_recognised():
     assert not _forbidden("multiraft_tpu_torch.engine.core")
 
 
+def test_a_benchmarks_import_is_caught(tmp_path):
+    """The reference's nemesis reaches ``benchmarks.openloop`` lazily,
+    inside a function; the scan walks function bodies too."""
+    assert _forbidden("benchmarks.openloop") and _forbidden("benchmarks")
+    planted = tmp_path / "planted.py"
+    planted.write_text(
+        "def surge():\n    from benchmarks.openloop import fire_schedule\n"
+    )
+    assert [m for m in _imported_modules(planted) if _forbidden(m)] == [
+        "benchmarks.openloop"
+    ]
+    ref = REPO / "multiraft_tpu" / "harness" / "nemesis.py"
+    assert "benchmarks.openloop" in list(_imported_modules(ref))
+
+
 def test_whole_package_imports_with_jax_unimportable():
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['jaxlib'] = None\n"
         "sys.modules['multiraft_tpu'] = None\n"
+        "sys.modules['benchmarks'] = None\n"
         "import multiraft_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'multiraft_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
@@ -73,7 +90,11 @@ def test_whole_package_imports_with_jax_unimportable():
         "          'harness.cluster', 'harness.raft_harness', 'harness.kv_harness',\n"
         "          'harness.ctrler_harness', 'harness.shardkv_harness', 'conformance',\n"
         "          'services.backend', 'services.kvraft', 'services.shardctrler',\n"
-        "          'services.shardkv', 'engine.bench_verify'):\n"
+        "          'services.shardkv', 'engine.bench_verify',\n"
+        "          'distributed.placement', 'harness.fleet', 'harness.observe',\n"
+        "          'harness.bundle', 'harness.nemesis', 'harness._openloop',\n"
+        "          'harness.loadcurve', 'harness.split_harness',\n"
+        "          'analysis.postmortem'):\n"
         "    assert 'multiraft_tpu_torch.' + n in names, n\n"
         "print(len(names))\n"
     )
@@ -148,6 +169,9 @@ HOST_MODULES = (
     "harness.kv_harness", "harness.ctrler_harness", "harness.shardkv_harness",
     "conformance", "services.backend", "services.kvraft",
     "services.shardctrler", "services.shardkv", "engine.bench_verify",
+    "distributed.placement", "distributed.cluster", "harness",
+    "harness.fleet", "harness.observe", "harness.bundle", "harness.nemesis",
+    "harness.loadcurve", "harness.split_harness", "analysis.postmortem",
 )
 
 

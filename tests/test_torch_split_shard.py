@@ -3,9 +3,11 @@
 
 Each engine-level scenario of ``tests/test_engine_split_shard.py`` runs
 on two reference "processes" and on two port processes
-(``device="cpu"``), driven by the reference's own slab-shuttle rig
-(``multiraft_tpu/harness/split_harness.py``, which takes either
-package's services).  After every pump of every side the planes, driver
+(``device="cpu"``).  Reference sides are driven by the reference's own
+slab-shuttle rig (``multiraft_tpu/harness/split_harness.py``), port
+sides by the port's (``multiraft_tpu_torch/harness/split_harness.py``),
+and one test drives port sides with both rigs and requires the same
+records and slabs.  After every pump of every side the planes, driver
 bookkeeping and service state (configs, replicas, the peering's payload
 candidates, the no-op barrier state) are recorded, and every slab is
 kept in the reference codec's bytes; the port must go through the same
@@ -28,10 +30,11 @@ import multiraft_tpu_torch.engine.split as PS
 import multiraft_tpu_torch.engine.split_shard as PSS
 from multiraft_tpu.engine.core import EngineConfig as JaxConfig
 from multiraft_tpu.engine.host import EngineDriver as JaxDriver
-from multiraft_tpu.harness.split_harness import SplitShardRig
+from multiraft_tpu.harness.split_harness import SplitShardRig as RefSplitShardRig
 from multiraft_tpu.transport import codec
 from multiraft_tpu_torch.engine.core import EngineConfig
 from multiraft_tpu_torch.engine.host import EngineDriver
+from multiraft_tpu_torch.harness.split_harness import SplitShardRig
 from multiraft_tpu_torch.services.shardctrler import NSHARDS, Config
 from multiraft_tpu_torch.services.shardkv import BEPULLING, GCING, SERVING, key2shard
 from torch_parity import PumpRecorder, canon
@@ -48,8 +51,8 @@ G = 3
 OWNERS_MINORITY_0 = {g: [0, 1, 1] for g in range(G)}  # side 0 = minority
 
 
-class Rig(SplitShardRig):
-    """The reference rig, keeping every extracted slab as codec bytes."""
+class _SlabLog:
+    """A rig that keeps every extracted slab as codec bytes."""
 
     def __init__(self, sides):
         super().__init__(sides)
@@ -68,7 +71,15 @@ class Rig(SplitShardRig):
                         self.sides[proc][1].inject(slab)
 
 
-def make_rig(pkgs, owners=OWNERS_MINORITY_0, delay_on=1, delay=300):
+class RefRig(_SlabLog, RefSplitShardRig):
+    """The reference's rig."""
+
+
+class PortRig(_SlabLog, SplitShardRig):
+    """The port's rig."""
+
+
+def make_rig(pkgs, owners=OWNERS_MINORITY_0, delay_on=1, delay=300, rig=None):
     sides = []
     for me, (pkg, seed) in enumerate(zip(pkgs, (11, 22))):
         shape = dict(G=G, P=3, L=48, E=8, INGEST=8, host_paced_compaction=True)
@@ -81,7 +92,9 @@ def make_rig(pkgs, owners=OWNERS_MINORITY_0, delay_on=1, delay=300):
         if delay_on == me:
             driver.state = driver.state._replace(elect_dl=driver.state.elect_dl + delay)
         sides.append((skv, peering))
-    return Rig(sides)
+    if rig is None:
+        rig = PortRig if all(pkg is PORT for pkg in pkgs) else RefRig
+    return rig(sides)
 
 
 def basic_migration_across_processes(rig):
@@ -189,6 +202,21 @@ def test_mixed_rig_matches_reference_rig():
     run_rigs(kill_minority_owner_mid_migration, (PORT, REF))
 
 
+@pytest.mark.parametrize("scenario", SCENARIOS, ids=[s.__name__ for s in SCENARIOS])
+def test_port_rig_equals_the_reference_rig(scenario):
+    """Port sides driven by the port's rig and by the reference's rig
+    go through the same records, ship the same slabs and end with the
+    same results."""
+    a = make_rig((PORT, PORT), rig=RefRig)
+    b = make_rig((PORT, PORT), rig=PortRig)
+    recs = [PumpRecorder(a.sides[i][0], b.sides[i][0]) for i in (0, 1)]
+    out = [scenario(rig) for rig in (a, b)]
+    for i, rec in enumerate(recs):
+        assert rec.check((scenario.__name__, "side", i)) > 0
+    assert canon(out[0]) == canon(out[1])
+    assert a.slabs == b.slabs
+
+
 def persistence_adapter_roundtrip(pkg):
     """persist_group/restore_group round-trip the ctrler history and a
     replica's shard slots into a fresh instance; replay_apply dedups,
@@ -273,3 +301,18 @@ def test_get_fast_is_refused_on_split_groups():
         skv.get_fast("a")
     assert skv.submit_local(1, "Get", "a") is None  # no leader yet
     assert skv.ctrl_local("join", {1: ["p"]}) is None
+
+
+def test_on_slab_sees_every_slab_the_rig_delivers():
+    """``on_slab`` (the port's hook, which the smoke's rig counts bytes
+    with) is handed every slab a live side extracts, in order, and the
+    plain rig ends where the slab-logging rig does."""
+    seen = []
+    plain = make_rig((PORT, PORT), rig=lambda sides: SplitShardRig(
+        sides, on_slab=lambda slab: seen.append(codec.encode(slab))))
+    logged = make_rig((PORT, PORT))
+    out = [kill_minority_owner_mid_migration(r) for r in (plain, logged)]
+    assert out[0] == out[1]
+    want = [codec.encode(s) for _i, b in logged.slabs
+            for s in codec.decode(b).values()]
+    assert seen == want and len(seen) > 0

@@ -1,11 +1,14 @@
 """The port's durable state plane (``distributed/stateplane.py``).
 
-* The unit tests of the reference's ``tests/test_stateplane.py`` that
-  need neither the placement controller, the in-process fleet harness
-  nor the postmortem doctor, run against the port: ship rules, the
-  ``MRSP`` framing fuzzed by byte flips and truncation, the standby
-  store, freshness ordering, and ``StatePlane`` capture, cadence, sync
-  gate, metrics and SHIP flight records.
+* The unit tests of the reference's ``tests/test_stateplane.py`` run
+  against the port: ship rules, the ``MRSP`` framing fuzzed by byte
+  flips and truncation, the standby store, freshness ordering,
+  ``StatePlane`` capture, cadence, sync gate, metrics and SHIP flight
+  records; the unseal-after-dispatch fork guard and the in-process
+  durable failover (ship → kill → recover) through the placement
+  controller, with the engines on the CPU; and the doctor's SHIP
+  analyses.  The slow socket scenario (``-m slow``) runs its fleet on
+  the card when there is one.
 * Parity with the reference on the same inputs (numpy-seeded): framed
   bodies are byte for byte the reference's and unframe in either
   package, the standby choice and freshness order are the reference's,
@@ -15,10 +18,12 @@
 
 from __future__ import annotations
 
+import time
 import types
 
 import numpy as np
 import pytest
+import torch
 
 import multiraft_tpu.distributed.stateplane as ref_sp
 from multiraft_tpu.transport import codec as ref_codec
@@ -320,6 +325,68 @@ class TestStatePlaneUnit:
         plane._apply_reply(1, 1, {"ok": False, "have": -1}, "tail", 1, 10)
         assert plane._acked_tail.get((1, 1), -1) == -1
 
+    def test_poll_mode_folds_each_reply_under_its_own_gid(self):
+        """The port's async hook (one RPC in flight per standby, the
+        reply handed back through ``poll``): a reply is folded under the
+        gid it names, whichever group ships next, so two groups' writes
+        are covered after three rounds; the reference folds a reply
+        only when the next payload is for the same group."""
+        store = StandbyStore()
+        wal = types.SimpleNamespace(seq=0)
+        flying = {}
+
+        def send(sb, payload):
+            assert sb not in flying  # never sent while one flies
+            flying[sb] = store.receive(payload)
+
+        def poll(sb):
+            return (False, flying.pop(sb)) if sb in flying else (False, None)
+
+        plane = StatePlane(
+            FakeSkv(gids=(1, 2)), me=0, n_procs=2, send=send, poll=poll,
+            window_s=1000.0, sync=True, wal_seq_fn=lambda: wal.seq,
+        )
+        for gid in (1, 2):
+            wal.seq += 1
+            plane.note_write(gid, _op(cid=gid, cmd=1))
+        assert not plane.covered(2)
+        for r in range(3):
+            plane.ship_round(now=float(r))
+        assert plane.covered(1) and plane.covered(2)
+        assert plane._acked_tail[(1, 1)] == 1 == plane._acked_tail[(2, 1)]
+
+    def test_poll_mode_builds_nothing_for_a_busy_standby(self):
+        store = StandbyStore()
+        sent = []
+        plane = StatePlane(
+            FakeSkv(), me=0, n_procs=2, send=lambda sb, p: sent.append(sb),
+            poll=lambda sb: (True, None), window_s=0.0,
+        )
+        plane.note_write(1, _op())
+        for r in range(3):
+            plane.ship_round(now=float(r))
+        assert not sent and plane.skv.snap_calls == 0
+        assert store.freshness(1) is None
+
+    def test_a_group_hosted_again_ships_under_a_new_token(self):
+        """After forget_group the group's sequence numbers start over,
+        so its next stay ships under a fresh token: the standby re-bases
+        on the new snapshot instead of keeping the old stay's frontier,
+        which would cover writes never shipped."""
+        store = StandbyStore()
+        plane, _ = self._plane(store, window_s=1000.0)
+        for cmd in (1, 2, 3):
+            plane.note_write(1, _op(cmd=cmd))
+        plane.ship_round(now=0.0)
+        first = store.freshness(1)
+        assert first["token"] == plane.token and first["tail_seq"] == 3
+        plane.forget_group(1)
+        plane.note_write(1, _op(cmd=4))
+        plane.ship_round(now=1.0)
+        f = store.freshness(1)
+        assert f["token"] != first["token"] and f["tail_seq"] == 1
+        assert plane._acked_tail[(1, 1)] == 1
+
     def test_sync_gate_opens_only_after_standby_ack(self):
         store = StandbyStore()
         wal = types.SimpleNamespace(seq=0)
@@ -344,6 +411,39 @@ class TestStatePlaneUnit:
         assert not plane.covered(1)
         clock.t += 9.0
         assert plane.max_lag_s() >= 9.0
+
+    def test_a_standby_that_left_the_fleet_is_replaced(self):
+        """Deviation from the reference (ROADMAP queue C): once the
+        placement push shows a standby process hosting nothing, the
+        plane re-bases the group onto the next live candidate, and the
+        sync gate the dead standby held closed opens.  Without the push
+        the plane behaves as the reference's."""
+        wal = types.SimpleNamespace(seq=1)
+        stores = {1: StandbyStore(), 2: StandbyStore()}
+        dead = {2}
+
+        def send(sb, p):
+            return None if sb in dead else stores[sb].receive(p)
+
+        plane = StatePlane(FakeSkv(gids=(1,)), me=0, n_procs=3, send=send,
+                           sync=True, wal_seq_fn=lambda: wal.seq,
+                           window_s=0.0)
+        ref = ref_sp.StatePlane(FakeSkv(gids=(1,)), me=0, n_procs=3,
+                                send=send, sync=True,
+                                wal_seq_fn=lambda: wal.seq, window_s=0.0)
+        for pl in (plane, ref):
+            pl.note_write(1, _op(cid=3, cmd=1))
+            pl.ship_round()
+            # gid 1's one standby among [1, 2] is proc 2: dead.
+            assert not pl.covered(1)
+        assert stores[1].freshness(1) is None
+        plane.set_live([0, 1])
+        assert plane.live_procs == {0, 1}
+        plane.ship_round()
+        assert plane.covered(1)
+        assert stores[1].get(1)[0] is not None  # re-based by a snapshot
+        ref.ship_round()
+        assert not ref.covered(1)
 
     def test_forget_group_releases_sync_obligations(self):
         wal = types.SimpleNamespace(seq=4)
@@ -428,3 +528,441 @@ class TestStatePlaneUnit:
         assert sent["port"] and sent["port"] == sent["ref"]
         for gid in (1, 2, 3):
             assert stores["port"].get(gid) == stores["ref"].get(gid)
+
+
+
+
+# ---------------------------------------------------------------------------
+# unseal_group post-dispatch: the fork guard (satellite 1)
+# ---------------------------------------------------------------------------
+
+
+class TestUnsealAfterDispatch:
+    def test_unseal_after_export_raises_without_force(self):
+        from multiraft_tpu_torch.harness.fleet import InProcessFleet
+
+        fleet = InProcessFleet([[1]], spare_slots=1, seed=11, device="cpu")
+        fleet.admin("join", [1])
+        fleet.settle()
+        inst = fleet.instances[0]
+        blob = None
+        for _ in range(200):
+            blob = inst.export_group(1)
+            if blob is not None:
+                break
+            fleet.pump_all(2)
+        assert blob is not None and inst.is_sealed(1)
+        # The blob may now sit in an adopt RPC: unsealing could fork
+        # the group.  Only the controller's provably-dead-destination
+        # resume leg (force=True) may revive it.
+        with pytest.raises(RuntimeError, match="dispatched"):
+            inst.unseal_group(1)
+        assert inst.is_sealed(1)
+        inst.unseal_group(1, force=True)
+        assert not inst.is_sealed(1)
+
+
+# ---------------------------------------------------------------------------
+# In-process durable failover: ship → kill → recover
+# ---------------------------------------------------------------------------
+
+
+def _placed_fleet(seed, rules=None, sync=True):
+    from multiraft_tpu_torch.distributed.placement import LocalPlacementStore
+    from multiraft_tpu_torch.harness.fleet import (
+        InProcessFleet,
+        LocalFleetTransport,
+    )
+    from tests.test_torch_placement import make_controller
+
+    fleet = InProcessFleet([[1], [2]], spare_slots=1, seed=seed, device="cpu")
+    fleet.admin("join", [1])
+    fleet.admin("join", [2])
+    fleet.settle()
+    fleet.enable_shipping(rules, window_s=0.0, sync=sync)
+    store = LocalPlacementStore({1: 0, 2: 1})
+    ctl = make_controller(LocalFleetTransport(fleet), store)
+    return fleet, store, ctl
+
+
+def _fail_over(fleet, store, ctl, victim, gids):
+    fleet.kill(victim)
+    ctl.dead.add(victim)
+    for _ in range(8):
+        ctl.step()
+        _, placement, pending, _ = store.query()
+        if not pending and all(
+            placement[g] != victim for g in gids
+        ):
+            break
+    _, placement, pending, history = store.query()
+    assert not pending
+    assert all(placement[g] != victim for g in gids)
+    assert any(h[4] == "failover" for h in history)
+    return placement
+
+
+class TestDurableFailover:
+    def test_ship_kill_recover_preserves_data_exactly_once(self):
+        from multiraft_tpu_torch.services.shardkv import key2shard
+
+        fleet, store, ctl = _placed_fleet(seed=5)
+        clerk = fleet.clerk()
+        clerk.put("a", "1")
+        clerk.append("a", "2")
+        clerk.put("b", "x")
+        fleet.pump_all(4)  # ship rounds run inside pump_all
+
+        cfg = fleet.instances[0].query_latest()
+        gid = cfg.shards[key2shard("a")]
+        victim = fleet.proc_of(gid)
+        survivor = 1 - victim
+        # The standby already holds shipped state for the victim's gid.
+        assert fleet.standbys[survivor].freshness(gid) is not None
+
+        _fail_over(fleet, store, ctl, victim,
+                   [g for g in (1, 2) if fleet.proc_of(g) is None])
+        # Acked writes survived the SIGKILL: recovered, not empty.
+        assert clerk.get("a") == "12"
+        assert ctl._obs is None or True  # controller obs optional
+        # Exactly-once: the tail replayed with original session ids, so
+        # the dedup table is intact — a fresh append lands exactly once.
+        clerk.append("a", "3")
+        assert clerk.get("a") == "123"
+        # Post-recovery the fleet serves every key.
+        for key in ("a", "b", "q"):
+            clerk.put(key, f"post-{key}")
+            assert clerk.get(key) == f"post-{key}"
+
+    def test_no_shipped_state_falls_back_to_explicit_empty_adoption(self):
+        from multiraft_tpu_torch.services.shardkv import key2shard
+
+        # Pin every group's shipments to its OWN owner: unsatisfiable,
+        # so nothing ever ships (the no-standby degenerate case).
+        rules = [
+            (r"gid-1", ShipSpec(pin=(0,))),
+            (r"gid-2", ShipSpec(pin=(1,))),
+        ]
+        fleet, store, ctl = _placed_fleet(seed=6, rules=rules,
+                                          sync=False)
+        clerk = fleet.clerk()
+        clerk.put("a", "doomed")
+        fleet.pump_all(4)
+
+        cfg = fleet.instances[0].query_latest()
+        gid = cfg.shards[key2shard("a")]
+        victim = fleet.proc_of(gid)
+        survivor = 1 - victim
+        assert fleet.standbys[survivor].freshness(gid) is None
+
+        _fail_over(fleet, store, ctl, victim, [gid])
+        # Crash model: the data died with the process — but the group
+        # serves again at the LATEST config via EXPLICIT empty adoption.
+        assert clerk.get("a") == ""
+        clerk.put("a", "reborn")
+        assert clerk.get("a") == "reborn"
+
+    def test_controller_prefers_standby_with_freshest_state(self):
+        from multiraft_tpu_torch.distributed.placement import (
+            LocalPlacementStore,
+        )
+        from multiraft_tpu_torch.harness.fleet import (
+            InProcessFleet,
+            LocalFleetTransport,
+        )
+        from multiraft_tpu_torch.services.shardkv import key2shard
+        from tests.test_torch_placement import make_controller
+
+        # Three procs, two shipping copies per group: when the owner
+        # dies, BOTH survivors hold state, and the controller routes
+        # the failover to the freshest one (here equal — but an offline
+        # standby must be excluded even though it holds state).
+        fleet = InProcessFleet([[1], [2], [3]], spare_slots=2, seed=7, device="cpu")
+        for g in (1, 2, 3):
+            fleet.admin("join", [g])
+        fleet.settle()
+        fleet.enable_shipping([(r".*", ShipSpec(copies=2))],
+                              window_s=0.0, sync=True)
+        store = LocalPlacementStore({1: 0, 2: 1, 3: 2})
+        tr = LocalFleetTransport(fleet)
+        ctl = make_controller(tr, store, max_moves=2)
+        clerk = fleet.clerk()
+        clerk.put("a", "A")
+        clerk.put("b", "B")
+        fleet.pump_all(4)
+
+        cfg = fleet.instances[0].query_latest()
+        gid = cfg.shards[key2shard("a")]
+        victim = fleet.proc_of(gid)
+        others = [p for p in (0, 1, 2) if p != victim]
+        # Kill one standby too: its copy is fresh but OFFLINE — the
+        # controller must pick the live one.
+        dead_standby = others[0]
+        live = others[1]
+        fleet.kill(dead_standby)
+        ctl.dead.add(dead_standby)
+        fleet.kill(victim)
+        ctl.dead.add(victim)
+        for _ in range(12):
+            ctl.step()
+            _, placement, pending, _ = store.query()
+            if not pending and all(
+                placement[g] == live for g in (1, 2, 3)
+            ):
+                break
+        _, placement, pending, _ = store.query()
+        assert all(placement[g] == live for g in placement), placement
+        assert clerk.get("a") == "A"
+        assert clerk.get("b") == "B"
+
+
+# ---------------------------------------------------------------------------
+# Observability: doctor anomaly + trace summary (satellite 4)
+# ---------------------------------------------------------------------------
+
+
+class TestShipObservability:
+    _n = 0
+
+    def _ring(self, tmp_path, ships, extra_gap_s=0.0, clean=False):
+        from multiraft_tpu_torch.distributed import flightrec
+
+        TestShipObservability._n += 1
+        rec = flightrec.FlightRecorder(
+            str(tmp_path / f"so{TestShipObservability._n}.ring"),
+            slots=128, name="p0",
+        )
+        for gid, tag, frontier in ships:
+            rec.record(flightrec.SHIP, code=gid, a=2, b=64,
+                       c=frontier, tag=tag)
+        if extra_gap_s:
+            time.sleep(extra_gap_s)
+            rec.record(flightrec.TICK, a=1)  # death happens later
+        if clean:
+            rec.record(flightrec.NODE_CLOSE, tag="p0")
+        rec.close()
+        return rec.path
+
+    def test_doctor_flags_data_loss_window_exceeded(
+        self, tmp_path, monkeypatch
+    ):
+        from multiraft_tpu_torch.analysis import postmortem
+
+        monkeypatch.setenv("MRT_SHIP_WINDOW_S", "0.05")
+        ring = self._ring(tmp_path, [(3, "tail", 9)], extra_gap_s=0.12)
+        analysis = postmortem.analyze(postmortem.load_bundle(ring))
+        hits = [a for a in analysis["anomalies"]
+                if a["kind"] == "ship_window_exceeded"]
+        assert len(hits) == 1
+        assert "group 3" in hits[0]["detail"]
+        assert "frontier 9" in hits[0]["detail"]
+        proc = analysis["procs"][0]
+        assert proc["shipments"][3]["last_frontier"] == 9
+
+    def test_doctor_quiet_when_within_window_or_clean_or_no_ships(
+        self, tmp_path, monkeypatch
+    ):
+        from multiraft_tpu_torch.analysis import postmortem
+
+        monkeypatch.setenv("MRT_SHIP_WINDOW_S", "30.0")
+        # Unclean death but the last shipment is recent: no anomaly.
+        ring = self._ring(tmp_path, [(3, "snap", 4)], extra_gap_s=0.01)
+        analysis = postmortem.analyze(postmortem.load_bundle(ring))
+        kinds = [a["kind"] for a in analysis["anomalies"]]
+        assert "ship_window_exceeded" not in kinds
+
+        # A fleet that never shipped must not false-positive, even
+        # with a tiny window.
+        monkeypatch.setenv("MRT_SHIP_WINDOW_S", "0.0")
+        ring = self._ring(tmp_path, [], extra_gap_s=0.01)
+        analysis = postmortem.analyze(postmortem.load_bundle(ring))
+        kinds = [a["kind"] for a in analysis["anomalies"]]
+        assert "ship_window_exceeded" not in kinds
+        assert "shipments" not in analysis["procs"][0]
+
+        # Clean close: shutdown is not data loss.
+        monkeypatch.setenv("MRT_SHIP_WINDOW_S", "0.0")
+        ring = self._ring(tmp_path, [(2, "tail", 5)], extra_gap_s=0.01,
+                          clean=True)
+        analysis = postmortem.analyze(postmortem.load_bundle(ring))
+        kinds = [a["kind"] for a in analysis["anomalies"]]
+        assert "ship_window_exceeded" not in kinds
+
+    def test_doctor_trace_has_ship_instants(self, tmp_path):
+        from multiraft_tpu_torch.analysis import postmortem
+
+        ring = self._ring(tmp_path, [(3, "snap", 7), (3, "tail", 11)])
+        tracer = postmortem.rings_to_trace(postmortem.load_bundle(ring))
+        inst = [e for e in tracer.events
+                if e.get("ph") == "i" and e["name"].startswith("ship:")]
+        assert len(inst) == 2
+        assert inst[0]["args"]["kind"] == "snap"
+        assert inst[1]["args"]["frontier"] == 11
+        assert all(e["tid"] == "ship" for e in inst)
+
+
+# The slow scenario runs its fleet on the card when there is one.
+_DEVICE = "cuda" if torch.cuda.is_available() else "cpu"
+
+
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.slow
+@pytest.mark.timeout_s(600)
+def test_durable_failover_chaos_loses_zero_acked_writes(tmp_path):
+    """The durable acceptance scenario over real sockets: a PlacedFleet
+    with SYNC shipping (acks gate on standby coverage) takes clerk load
+    while the nemesis SIGKILLs one mesh process; every acknowledged
+    write from before the kill is still readable after the stateful
+    failover, the fleet serves, and the racing clerk history stays
+    linearizable."""
+    from multiraft_tpu_torch.harness.fleet import PlacedFleet
+    from multiraft_tpu_torch.harness.nemesis import run_clerk_load
+    from multiraft_tpu_torch.porcupine.kv import kv_model
+    from multiraft_tpu_torch.porcupine.visualization import (
+        assert_linearizable,
+    )
+
+    fleet = PlacedFleet(
+        [[1], [2], [3]], spare_slots=2, seed=23,
+        shipping=True, ship_sync=True, ship_window_s=0.5, device=_DEVICE,
+        controller_kwargs=dict(
+            scrape_s=0.3, dead_s=2.0, cooldown_s=5.0,
+            min_gain=0.25, max_moves=1,
+        ),
+    )
+    try:
+        fleet.start()
+        for g in (1, 2, 3):
+            fleet.admin("join", [g])
+
+        # Phase 1: acknowledged writes that MUST survive the kill.
+        # (Separate key space from the load phase so porcupine's
+        # history stays self-contained.)
+        clerk = fleet.clerk()
+        durable = {f"d{c}": f"v{c}" for c in "abcdef"}
+        for k, v in durable.items():
+            clerk.put(k, v)
+
+        victim = 2
+        _, placement0 = fleet.placement()
+        victim_gids = [g for g, p in placement0.items() if p == victim]
+        assert victim_gids
+
+        t_kill = time.monotonic()
+        fleet.kill_mesh_process(victim)
+        deadline = t_kill + 120.0
+        while time.monotonic() < deadline:
+            _, placement, pending, _ = fleet.pmap.query()
+            if not pending and all(
+                placement.get(g) not in (None, victim)
+                for g in victim_gids
+            ):
+                break
+            time.sleep(0.25)
+        replace_s = time.monotonic() - t_kill
+        _, placement, pending, history = fleet.pmap.query()
+        assert all(placement[g] != victim for g in victim_gids), (
+            placement, pending
+        )
+        assert replace_s < 120.0
+        assert any(h[4] == "failover" for h in history)
+
+        # Phase 2: ZERO acknowledged writes lost — sync shipping means
+        # every acked pre-kill write was standby-covered before its ack.
+        clerk2 = fleet.clerk()
+        for k, v in durable.items():
+            assert clerk2.get(k) == v, f"acked write {k} lost"
+
+        # Phase 3: the fleet serves under load and linearizes.
+        history_ops = run_clerk_load(
+            fleet.clerk, keys=["pa", "pb", "pc"],
+            n_workers=3, ops_per_worker=6, op_timeout=120.0,
+        )
+        assert_linearizable(
+            kv_model, history_ops, timeout=60.0,
+            name="durable-failover-chaos",
+        )
+    finally:
+        fleet.shutdown()
+
+
+@pytest.mark.timeout_s(240)
+def test_writes_ack_on_every_group_after_a_process_dies(tmp_path):
+    """A sync-shipping ``PlacedFleet`` (CPU) loses a process: after the
+    failover, a write to every shard acknowledges — also on the groups
+    whose standby was the dead process (the reference's would wait on
+    it for good; ROADMAP queue C)."""
+    from multiraft_tpu_torch.harness.fleet import PlacedFleet
+
+    fleet = PlacedFleet(
+        [[1], [2], [3]], spare_slots=2, seed=23, shipping=True,
+        ship_sync=True, ship_window_s=0.5, device="cpu",
+        data_dir=str(tmp_path / "d"),
+        controller_kwargs=dict(scrape_s=0.3, dead_s=2.0, cooldown_s=5.0,
+                               min_gain=0.25, max_moves=1),
+    )
+    try:
+        fleet.start()
+        for g in (1, 2, 3):
+            fleet.admin("join", [g])
+        clerk = fleet.clerk()
+        keys = [f"{i}k" for i in range(10)]  # one per shard
+        for k in keys:
+            clerk.put(k, "a")
+        fleet.kill_mesh_process(2)
+        deadline = time.monotonic() + 120.0
+        while time.monotonic() < deadline:
+            _, placement, pending, _ = fleet.pmap.query()
+            if not pending and all(p != 2 for p in placement.values()):
+                break
+            time.sleep(0.25)
+        assert all(p != 2 for p in placement.values()), placement
+        for k in keys:
+            clerk.append(k, "b", timeout=60.0)
+        assert [clerk.get(k) for k in keys] == ["ab"] * 10
+        clerk.close()
+    finally:
+        fleet.shutdown()
+
+
+@pytest.mark.timeout_s(120)
+def test_a_recovering_group_answers_wrong_group_until_its_tail_replays():
+    """Deviation from the reference (ROADMAP queue C): while
+    ``recover_group`` replays a group's shipped tail, reads and writes
+    of its keys are refused with ErrWrongGroup (the clerk retries)
+    instead of being served from the snapshot alone; the group serves
+    again once the replay ends."""
+    from multiraft_tpu_torch.distributed.engine_clerks import EngineFleetClerk
+    from multiraft_tpu_torch.distributed.engine_shard_server import (
+        serve_engine_shardkv,
+    )
+    from multiraft_tpu_torch.distributed.engine_wire import EngineCmdArgs
+    from multiraft_tpu_torch.distributed.tcp import RpcNode
+
+    node = serve_engine_shardkv(0, gids=[1], peer_addrs={}, device="cpu")
+    client = RpcNode()
+    try:
+        svc = node.engine_service
+        end = client.client_end(node.host, node.port)
+        r = client.sched.wait(end.call("EngineShardKV.admin", ("join", [1], 1)), 30)
+        assert r.err == "OK"
+        ck = EngineFleetClerk(client.sched, {1: end})
+        assert client.sched.wait(client.sched.spawn(ck.put("1k", "v")), 30) == ""
+        svc._recovering.add(1)
+        for args in (EngineCmdArgs(op="Get", key="1k"),
+                     EngineCmdArgs(op="Put", key="1k", value="w",
+                                   client_id=5, command_id=1)):
+            r = client.sched.wait(end.call("EngineShardKV.command", args), 30)
+            assert r.err == "ErrWrongGroup", (args.op, r)
+        (r,) = client.sched.wait(end.call(
+            "EngineShardKV.batch", [EngineCmdArgs(op="Get", key="1k")]), 30)
+        assert r.err == "ErrWrongGroup"
+        svc._recovering.clear()
+        r = client.sched.wait(end.call(
+            "EngineShardKV.command", EngineCmdArgs(op="Get", key="1k")), 30)
+        assert (r.err, r.value) == ("OK", "v")
+    finally:
+        client.close()
+        node.close()
