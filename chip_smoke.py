@@ -92,7 +92,7 @@ and prints no result line):
    L=64, E=8, INGEST=8, kernels off; this process launches nothing):
    (a) ``serve-shardkv --groups 10000`` (group 0 the config RSM): seconds
    to ``ready`` and card memory; gids 1..9,999 joined by one admin RPC,
-   ticks and seconds until a Get answers on every shard; 27,000 keys
+   ticks and seconds until a Get answers on every shard; 9,000 keys
    loaded as single-op sessions in firehose frames; 8
    ``EngineShardNetClerk`` threads of appends and Gets across a live
    ``move`` and ``leave``, their wall-clock history checked by the
@@ -126,7 +126,10 @@ and prints no result line):
    (b) every ``conformance`` scenario (seed 7) and fuzz seeds 101, 202
    and 303 through ``run_both`` with the engine on the card, each card
    stream equal to the sim's and to the CPU engine's; then ``cocktail``
-   at G=256.
+   at G=256. 9(b) and 10(c) run in a spawned side process (its own
+   launch counters, reset before each and read after) while phase 8
+   waits on its servers; phase 9 starts once that process has sent
+   both results, so 9(a) and 10(a)-(b) time the card alone.
 10. The placed, self-healing fleet (``harness/fleet.py`` over the
    ``serve-shardkv`` fleet processes, P=3, L=64, E=8, INGEST=8, kernels
    off), each sub-phase with the launch counters reset just before it
@@ -149,18 +152,39 @@ and prints no result line):
    replica killed under acknowledged writes and healed (learner,
    catch-up, joint, promote), then again with the controller crashed
    mid-reconfig and a fresh one resuming from the replicated intent;
-   (c) ``InProcessFleet`` at 3 x 2 and 3 x 64 gids, the same seed and
+   (c) ``InProcessFleet`` at 3 x 2 and 3 x 32 gids, the same seed and
    script of legs through ``LocalFleetTransport`` (a live migration, a
    replica replacement, a durable recovery from a standby, an empty
    adoption after the kill) on the card and on the CPU, equal planes,
    data, dedup tables and placement map after every leg.
 
+11. The groups-sharded engine (``engine/mesh.py``), each sub-phase with
+   the launch counters reset just before it and read just after; the
+   mesh runs the plain tick (the reference's mesh runs without its
+   Pallas kernels), so both counts stay 0:
+   (a) ``EngineDriver(mesh=make_mesh(1))`` at the headline widths:
+   elections, 400 ``BatchedKV`` requests against a dict model, 5(a)'s
+   fault script under an invariant monitor, a checkpoint refused without
+   a mesh and restored onto a 1-card mesh and a 1-shard CPU mesh, all
+   three equal on every plane after 30 more faulted ticks;
+   (b) ``Mesh(["cuda:0"] * 4)`` at G=64 equal to 4 CPU shards after each
+   of 300 ticks of drops, crashes, partitions and reorder; the 4-shard
+   mesh at the headline widths through 100 firehose ticks audited by
+   ``assert_zero_collectives``, and its firehose ms per tick beside a
+   1-shard mesh's (shards sharing one card measure the partitioning,
+   not multi-card scaling);
+   (c) ``serve-kv --groups 10000 --mesh-devices 1``, durable: ``ready``
+   and card memory, 8 clerks against a dict model, ``kill -9`` in a
+   firehose and a restart that restores onto the mesh with every
+   acknowledged write read back, SIGTERM exit 0; then two ``serve-shardkv
+   --mesh-devices 1`` fleet processes migrating shards between them.
+
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --only 10a 10b 10c`` runs the named sub-phases of
-phase 10 alone, with the controller's time in each transport and map verb,
-and prints no contract lines.
+``python3 chip_smoke.py --only 10a 10b 10c 11a 11b 11c`` runs the named
+sub-phases alone (phase 10's with the controller's time in each transport
+and map verb) and prints no contract lines.
 """
 
 from __future__ import annotations
@@ -183,7 +207,15 @@ REPLACES = {
 }
 
 
+# In the side process (``Beside``) the log is kept and handed back with
+# each result, so its lines print where the result is read.
+_LOG_BUFFER = None
+
+
 def log(msg: str) -> None:
+    if _LOG_BUFFER is not None:
+        _LOG_BUFFER.append(msg)
+        return
     print(msg, flush=True)
 
 
@@ -504,7 +536,7 @@ def phase_serving(card: str) -> dict:
 
     from multiraft_tpu_torch.engine.core import EngineConfig
     from multiraft_tpu_torch.engine.host import EngineDriver
-    from multiraft_tpu_torch.engine.kv import BatchedKV, KVOp
+    from multiraft_tpu_torch.engine.kv import BatchedKV
 
     G = HEADLINE["G"]
     cfg = EngineConfig(use_kernels=True, **HEADLINE)
@@ -519,12 +551,45 @@ def phase_serving(card: str) -> dict:
         f"({time.perf_counter() - t0:.2f} s)")
 
     kv = BatchedKV(d, record_groups=[0, 1])
-    rng = np.random.default_rng(7)
+    n, groups, pumps, wall, reads = _kv_against_model(kv, G)
+    log(f"serving: {n} logged requests over {len(groups)} groups "
+        f"answered in {pumps} pumps ({wall:.2f} s), {reads} reads match the "
+        f"dict model")
+    for g in (0, int(groups[0])):
+        d.check_log_matching(g)
+
+    # A fused firehose batch: every group's leader ingests INGEST a tick.
+    n = 100
+    d.start_bulk(np.full(G, HEADLINE["INGEST"] * n, np.int64))
+    c0 = d.commits_total  # a readback: the device is idle here
+    t0 = time.perf_counter()
+    d.step(n)  # ends in the batch's readback
+    wall = time.perf_counter() - t0
+    commits = d.commits_total - c0
+    if commits <= 0:
+        raise AssertionError("the firehose committed nothing")
+    fh = dict(ticks=n, commits=commits, ms_per_tick=wall / n * 1e3,
+              commits_per_s=commits / wall)
+    log(f"firehose: {n} fused ticks, {commits} commits, "
+        f"{fh['ms_per_tick']:.3f} ms/tick, {fh['commits_per_s']:.0f} commits/s "
+        f"[{card}]")
+    return fh
+
+
+def _kv_against_model(kv, G: int, seed: int = 7, n: int = 400, n_groups: int = 120):
+    """``n`` logged Get/Put/Append requests over ``n_groups`` groups of a
+    ``BatchedKV``, each answer and then three reads per group held
+    against a dict model.  Returns (requests, groups, pumps, s, reads)."""
+    import numpy as np
+
+    from multiraft_tpu_torch.engine.kv import KVOp
+
+    rng = np.random.default_rng(seed)
     model = [dict() for _ in range(G)]
     expect = []  # (ticket, expected value or None)
     cmd = {}
-    groups = rng.choice(G, size=120, replace=False)
-    for i in range(400):
+    groups = rng.choice(G, size=min(n_groups, G), replace=False)
+    for i in range(n):
         g = int(groups[i % len(groups)])
         key = f"k{int(rng.integers(0, 3))}"
         op = int(rng.choice([0, 1, 2, 2]))  # Get / Put / Append via the log
@@ -563,28 +628,7 @@ def phase_serving(card: str) -> dict:
             if got.value != model[g].get(key, ""):
                 raise AssertionError(f"read {g}/{key}: {got.value!r}")
             reads += 1
-    log(f"serving: {len(expect)} logged requests over {len(groups)} groups "
-        f"answered in {pumps} pumps ({wall:.2f} s), {reads} reads match the "
-        f"dict model")
-    for g in (0, int(groups[0])):
-        d.check_log_matching(g)
-
-    # A fused firehose batch: every group's leader ingests INGEST a tick.
-    n = 100
-    d.start_bulk(np.full(G, HEADLINE["INGEST"] * n, np.int64))
-    c0 = d.commits_total  # a readback: the device is idle here
-    t0 = time.perf_counter()
-    d.step(n)  # ends in the batch's readback
-    wall = time.perf_counter() - t0
-    commits = d.commits_total - c0
-    if commits <= 0:
-        raise AssertionError("the firehose committed nothing")
-    fh = dict(ticks=n, commits=commits, ms_per_tick=wall / n * 1e3,
-              commits_per_s=commits / wall)
-    log(f"firehose: {n} fused ticks, {commits} commits, "
-        f"{fh['ms_per_tick']:.3f} ms/tick, {fh['commits_per_s']:.0f} commits/s "
-        f"[{card}]")
-    return fh
+    return len(expect), groups, pumps, wall, reads
 
 
 # ---------------------------------------------------------------------------
@@ -1750,6 +1794,21 @@ def _gpu_mib(pid: int) -> tuple:
     return held, float(used)
 
 
+def _card_memory(srv, used0: float) -> tuple:
+    """(MiB, how) the card memory a server child holds: its own row of
+    ``nvidia-smi``, or, where the card lists pids of another pid
+    namespace, the card's used memory since ``used0``."""
+    held, used1 = _gpu_mib(srv.proc.pid)
+    if held is not None:
+        if held <= 0:
+            raise AssertionError(f"{srv.cmd} pid {srv.proc.pid} holds no card memory")
+        return held, f"pid {srv.proc.pid} holds {held:.0f} MiB"
+    if used1 - used0 < 100:
+        raise AssertionError(f"{srv.cmd}: card memory {used0:.0f} -> {used1:.0f} MiB")
+    return used1 - used0, (f"pid not listed (another pid namespace); card memory "
+                           f"{used0:.0f} -> {used1:.0f} MiB")
+
+
 def _readback(port: int, model: dict, tags: dict) -> int:
     """Every key of ``model`` reads back its value through one firehose
     Get frame per 4,096 keys; for each key of ``tags`` (key -> (acked
@@ -1786,9 +1845,11 @@ def _server_metrics(port: int) -> dict:
         c.close()
 
 
-def serve_traffic(port: int, card: str, model: dict) -> dict:
-    """7(b): clerk threads, one batch frame, a firehose; every answer held
-    against ``model`` (a dict of every acknowledged write)."""
+def serve_traffic(port: int, card: str, model: dict, full: bool = True,
+                  tag: str = "serve 7(b)") -> dict:
+    """7(b): clerk threads, one batch frame, a firehose (``full=False``:
+    the clerk threads alone); every answer held against ``model`` (a
+    dict of every acknowledged write)."""
     import threading
 
     from multiraft_tpu_torch.utils.metrics import Hist
@@ -1842,7 +1903,9 @@ def serve_traffic(port: int, card: str, model: dict) -> dict:
         write_p99_ms=_pct(lat["Put"] + lat["Append"], 99) * 1e3,
         get_p50_ms=_pct(lat["Get"], 50) * 1e3,
     )
-    log(f"serve 7(b): 8 clerks x 40 ops in {wall:.2f} s: {json.dumps(out['clerks'])} [{card}]")
+    log(f"{tag}: 8 clerks x 40 ops in {wall:.2f} s: {json.dumps(out['clerks'])} [{card}]")
+    if not full:
+        return out
 
     # One pipelined frame of MAX_BATCH ops; its Gets see its own writes.
     ops, want = [], {}
@@ -1907,12 +1970,80 @@ def serve_traffic(port: int, card: str, model: dict) -> dict:
     return out
 
 
+def _kill9_in_firehose(srv, model: dict, card: str, tag: str, frames: int = 12) -> dict:
+    """``kill -9`` of ``srv`` with a firehose frame in flight, a restart
+    on the same directory, every acknowledged write read back (each
+    acknowledged append tag once); then the crash keys are folded into
+    ``model`` as they now read."""
+    import threading
+
+    out = {}
+    tags = {}  # key -> (acked tags, unacked tags)
+    acked_frames = []
+    sent = []
+    crash_err = []
+
+    def firehose():
+        c = _Client(srv.port, "FirehoseClerk")
+        try:
+            for f in range(frames):
+                rows = [("Append", f"c{(f * 997 + i) % 9973}", f"[{f}.{i}]")
+                        for i in range(FH_ROWS)]
+                sent.append(rows)
+                c.run(c.ck.run_batch(rows, deadline_s=8.0), timeout=12.0)
+                acked_frames.append(f)
+        except (TimeoutError, AssertionError, OSError):
+            pass  # the server died under the frame in flight
+        except BaseException as e:
+            crash_err.append(e)
+        finally:
+            c.close()
+
+    th = threading.Thread(target=firehose)
+    th.start()
+    t0 = time.perf_counter()
+    while len(acked_frames) < 3 and time.perf_counter() - t0 < 120:
+        time.sleep(0.005)
+    if len(acked_frames) < 3:
+        raise AssertionError(f"{tag}: the firehose acknowledged under 3 frames")
+    time.sleep(0.05)  # the next frame is in flight
+    srv.kill9()
+    out["restart_after_kill_s"] = srv.start()
+    th.join(timeout=60)
+    if th.is_alive() or crash_err:
+        raise AssertionError(f"{tag}: firehose thread {crash_err}")
+    # The thread stops at the frame the kill cut: every frame before
+    # it was acknowledged.
+    n_acked = len(acked_frames)
+    for f, rows in enumerate(sent):
+        for _, key, t in rows:
+            acked, unacked = tags.setdefault(key, ([], []))
+            (acked if f < n_acked else unacked).append(t)
+    m = _server_metrics(srv.port)
+    out["replayed_records"] = m.get("wal.replayed_records", 0)
+    out["restores"] = m.get("engine.restores", 0)
+    keys = _readback(srv.port, model, tags)
+    log(f"{tag}: kill -9 after {n_acked} acknowledged frames "
+        f"({len(sent)} sent); ready again in {out['restart_after_kill_s']:.2f} s, "
+        f"{out['replayed_records']} WAL records replayed; {keys} keys read "
+        f"back, every acknowledged write there, each acked tag once [{card}]")
+    c = _Client(srv.port, "FirehoseClerk")
+    try:
+        ks = sorted(tags)
+        for i in range(0, len(ks), FH_ROWS):
+            part = ks[i: i + FH_ROWS]
+            model.update(zip(part, c.run(c.ck.run_batch(
+                [("Get", k, "") for k in part]))))
+    finally:
+        c.close()
+    return out
+
+
 def phase_serve(card: str) -> dict:
     """Phase 7: ``serve-kv`` on the card at the headline widths, driven
     by the port's clerks; kill -9 and SIGTERM restarts on the same
     directory; the ``kv`` command line."""
     import shutil
-    import threading
 
     G = HEADLINE["G"]
     data = os.path.join(SCRATCH, "serve")
@@ -1924,20 +2055,7 @@ def phase_serve(card: str) -> dict:
     try:
         _, used0 = _gpu_mib(-1)
         out["ready_s"] = srv.start()
-        held, used1 = _gpu_mib(srv.proc.pid)
-        if held is not None:
-            if held <= 0:
-                raise AssertionError(f"serve-kv pid {srv.proc.pid} holds no card memory")
-            how = f"pid {srv.proc.pid} holds {held:.0f} MiB"
-        else:
-            # The card lists pids of another pid namespace: read the
-            # card's used memory before and after the server came up.
-            if used1 - used0 < 100:
-                raise AssertionError(
-                    f"serve-kv: card memory {used0:.0f} -> {used1:.0f} MiB")
-            how = (f"pid not listed (another pid namespace); card memory "
-                   f"{used0:.0f} -> {used1:.0f} MiB")
-        out["card_mib"] = held if held is not None else used1 - used0
+        out["card_mib"], how = _card_memory(srv, used0)
         log(f"serve 7(a): ready in {out['ready_s']:.2f} s at G={G}; {how} [{card}]")
 
         out.update(serve_traffic(srv.port, card, model))
@@ -1947,65 +2065,7 @@ def phase_serve(card: str) -> dict:
             f"ckpt.saves {m.get('ckpt.saves')} pump.count {m.get('pump.count')}")
 
         # 7(c): kill -9 in the middle of a firehose.
-        tags = {}  # key -> (acked tags, unacked tags)
-        acked_frames = []
-        sent = []
-        crash_err = []
-
-        def firehose():
-            c = _Client(srv.port, "FirehoseClerk")
-            try:
-                for f in range(12):
-                    rows = [("Append", f"c{(f * 997 + i) % 9973}", f"[{f}.{i}]")
-                            for i in range(FH_ROWS)]
-                    sent.append(rows)
-                    c.run(c.ck.run_batch(rows, deadline_s=8.0), timeout=12.0)
-                    acked_frames.append(f)
-            except (TimeoutError, AssertionError, OSError):
-                pass  # the server died under the frame in flight
-            except BaseException as e:
-                crash_err.append(e)
-            finally:
-                c.close()
-
-        th = threading.Thread(target=firehose)
-        th.start()
-        t0 = time.perf_counter()
-        while len(acked_frames) < 3 and time.perf_counter() - t0 < 120:
-            time.sleep(0.005)
-        if len(acked_frames) < 3:
-            raise AssertionError("7(c): the firehose acknowledged under 3 frames")
-        time.sleep(0.05)  # the next frame is in flight
-        srv.kill9()
-        out["restart_after_kill_s"] = srv.start()
-        th.join(timeout=60)
-        if th.is_alive() or crash_err:
-            raise AssertionError(f"7(c): firehose thread {crash_err}")
-        # The thread stops at the frame the kill cut: every frame before
-        # it was acknowledged.
-        n_acked = len(acked_frames)
-        for f, rows in enumerate(sent):
-            for _, key, tag in rows:
-                acked, unacked = tags.setdefault(key, ([], []))
-                (acked if f < n_acked else unacked).append(tag)
-        m = _server_metrics(srv.port)
-        out["replayed_records"] = m.get("wal.replayed_records", 0)
-        keys = _readback(srv.port, model, tags)
-        log(f"serve 7(c): kill -9 after {n_acked} acknowledged frames "
-            f"({len(sent)} sent); ready again in {out['restart_after_kill_s']:.2f} s, "
-            f"{out['replayed_records']} WAL records replayed; {keys} keys read "
-            f"back, every acknowledged write there, each acked tag once [{card}]")
-        # Fold the crash keys into the model as they now read.
-        c = _Client(srv.port, "FirehoseClerk")
-        try:
-            ks = sorted(tags)
-            for s in range(0, len(ks), FH_ROWS):
-                part = ks[s: s + FH_ROWS]
-                model.update(zip(part, c.run(c.ck.run_batch(
-                    [("Get", k, "") for k in part]))))
-        finally:
-            c.close()
-
+        out.update(_kill9_in_firehose(srv, model, card, "serve 7(c)"))
         # 7(d): SIGTERM writes the final checkpoint; the restart replays nothing.
         srv.sigterm()
         out["restart_after_sigterm_s"] = srv.start()
@@ -2310,7 +2370,7 @@ def _key_per_shard(prefix: str) -> list:
 
 
 def shard_standalone(card: str, device: str = "cuda", G: int = HEADLINE["G"],
-                     n_keys: int = 27_000, workers: int = 8, ops: int = 20,
+                     n_keys: int = 9_000, workers: int = 8, ops: int = 20,
                      fh_clerks: int = 4) -> dict:
     """8(a): ``serve-shardkv`` at full width, group 0 the config RSM."""
     import shutil
@@ -3107,17 +3167,15 @@ def _same_streams(name, sc, sim, card_streams, cpu_streams) -> None:
             raise AssertionError(f"9b: {name}: group {g} stream differs from the sim's")
 
 
-def phase_verify(card: str, kernels) -> dict:
+def phase_verify(card: str, kernels, beside: Beside) -> dict:
     """Phase 9: each sub-phase with the launch counts set to 0 just
-    before it and read just after."""
-    out = {}
-    for name, fn in (("9a", headline_verified), ("9b", conformance_on_card)):
-        t0 = time.perf_counter()
-        out[name] = fn(card, kernels)
-        out[name]["phase_s"] = time.perf_counter() - t0
-        out[name]["launches"] = dict(kernels.LAUNCHES)
-        log(f"{name}: launches {out[name]['launches']}, "
-            f"{out[name]['phase_s']:.2f} s [{card}]")
+    before it and read just after; 9(b) ran in the side process."""
+    t0 = time.perf_counter()
+    out = {"9a": headline_verified(card, kernels)}
+    out["9a"]["phase_s"] = time.perf_counter() - t0
+    out["9a"]["launches"] = dict(kernels.LAUNCHES)
+    log(f"9a: launches {out['9a']['launches']}, {out['9a']['phase_s']:.2f} s [{card}]")
+    out["9b"] = beside.result("9b")
     return out
 
 
@@ -3137,6 +3195,12 @@ HEAL_KNOBS = dict(scrape_s=0.3, dead_s=2.0, cooldown_s=5.0, min_gain=10.0, max_m
 # 4).  The map's replicas snapshot past MAP_MAXRAFTSTATE bytes of log.
 PLACED = dict(gpp=256, spare=160, nemesis_s=20.0)
 MAP_MAXRAFTSTATE = 16384
+# This process's flight ring in 10(a): it holds the controller's PLACE
+# record of every failover beside two records of every clerk RPC and the
+# map's replication, and a slow failover's retries outgrow the default
+# 8,192 slots before the bundle is taken, evicting the first failovers.
+# The fleet's processes keep the default.
+PLACED_RING_SLOTS = 1 << 17
 
 
 def _keys_by_gid(shards, n_keys: int = 400) -> dict:
@@ -3206,6 +3270,15 @@ def placed_failover(card: str, device: str = "cuda", gpp: int = PLACED["gpp"],
     frec_dir = os.path.join(root, "rings")
     os.makedirs(frec_dir)
     os.environ["MRT_FLIGHTREC_DIR"] = frec_dir
+    slots_env = os.environ.get("MRT_FLIGHTREC_SLOTS")
+    os.environ["MRT_FLIGHTREC_SLOTS"] = str(PLACED_RING_SLOTS)
+    frec = flightrec.get_recorder()
+    if slots_env is None:
+        os.environ.pop("MRT_FLIGHTREC_SLOTS")
+    else:
+        os.environ["MRT_FLIGHTREC_SLOTS"] = slots_env
+    if frec.slots != PLACED_RING_SLOTS:
+        raise AssertionError(f"10(a): this process's flight ring has {frec.slots} slots")
     assignment = [[p * gpp + j + 1 for j in range(gpp)] for p in range(3)]
     all_gids = [g for gl in assignment for g in gl]
     fleet = PlacedFleet(assignment, spare_slots=spare, seed=31, chaos_seed=7, shipping=True,
@@ -3315,6 +3388,7 @@ def placed_failover(card: str, device: str = "cuda", gpp: int = PLACED["gpp"],
             counts = {p: sum(1 for q in pl.values() if q == p) for p in range(3)}
             victim = max(range(3), key=lambda p: (counts[p], p))
             victim_pid = fleet.cluster.procs[victim].pid
+            seq_kill = frec._seq
             t_kill = time.perf_counter()
             nem.run([(0.0, "kill_mesh_process", {"proc": victim}), (0.05, "heal", {})],
                     verify=False)
@@ -3462,9 +3536,12 @@ def placed_failover(card: str, device: str = "cuda", gpp: int = PLACED["gpp"],
             for r in ring["records"]:
                 if r["type"] == flightrec.PLACE and r["tag"] == "failover":
                     places[r["code"]] = r
+        out["ring"] = dict(slots=frec.slots, records=frec._seq,
+                           records_since_kill=frec._seq - seq_kill)
         missing = [g for g in victim_gids if g not in places]
         if missing:
-            raise AssertionError(f"10(a) doctor: no PLACE failover record for {missing[:5]}")
+            raise AssertionError(f"10(a) doctor: no PLACE failover record for {missing[:5]} "
+                                 f"({len(missing)} gids); this process's ring {out['ring']}")
         kinds = sorted({a["kind"] for a in analysis["anomalies"]})
         if "placement_thrash" in kinds:
             raise AssertionError("10(a) doctor: placement thrash: " + "; ".join(
@@ -3474,7 +3551,9 @@ def placed_failover(card: str, device: str = "cuda", gpp: int = PLACED["gpp"],
                              rings=len(bundle["rings"]))
         log(f"10(a): bundle of {len(bundle['rings'])} rings; the doctor names pid "
             f"{victim_pid} an UNCLEAN DEATH, {len(places)} PLACE failover records (one per "
-            f"victim gid), anomalies {kinds}, no placement thrash [{card}]")
+            f"victim gid), anomalies {kinds}, no placement thrash; this process's ring "
+            f"{out['ring']['records_since_kill']} records since the kill, "
+            f"{out['ring']['records']} in all, {frec.slots} slots [{card}]")
     finally:
         if writer is not None:
             writer.close()
@@ -3663,7 +3742,7 @@ def _inproc_legs(device: str, gpp: int, mark) -> None:
     mark("serving", _fleet_world(fleet, store))
 
 
-def inproc_card_vs_cpu(card: str, sizes=((3, 2), (3, 64))) -> dict:
+def inproc_card_vs_cpu(card: str, sizes=((3, 2), (3, 32))) -> dict:
     """10(c): the same in-process fleet script on the card and on the
     CPU; after every leg both hold equal planes, data, dedup tables and
     placement maps."""
@@ -3685,15 +3764,14 @@ def inproc_card_vs_cpu(card: str, sizes=((3, 2), (3, 64))) -> dict:
     return out
 
 
-def phase_placed(card: str, kernels) -> dict:
+def phase_placed(card: str, kernels, beside: Beside) -> dict:
     """Phase 10: each sub-phase with the launch counts set to 0 just
     before it and read just after.  The fleet servers are child
     processes that build their engines without the kernels, as the
-    reference's do, and the in-process fleets are built without them
-    too, so the counts stay 0."""
+    reference's do, and the in-process fleets of 10(c), run in the side
+    process, are built without them too, so the counts stay 0."""
     out = {}
-    for name, fn in (("10a", placed_failover), ("10b", placed_selfheal),
-                     ("10c", inproc_card_vs_cpu)):
+    for name, fn in (("10a", placed_failover), ("10b", placed_selfheal)):
         kernels.reset_launches()
         t0 = time.perf_counter()
         out[name] = fn(card)
@@ -3702,7 +3780,125 @@ def phase_placed(card: str, kernels) -> dict:
         log(f"{name}: launches {out[name]['launches']}, {out[name]['phase_s']:.2f} s [{card}]")
         if max(kernels.LAUNCHES.values()) > 0:
             raise AssertionError(f"{name}: launches in this process {kernels.LAUNCHES}")
+    out["10c"] = beside.result("10c")
     return out
+
+
+# ---------------------------------------------------------------------------
+# The side process: 9(b) and 10(c) beside phase 8
+# ---------------------------------------------------------------------------
+
+# Sub-phases that hold the card's engine against the CPU's in this
+# process, with nothing timed that PERF.md compares across runs; they run
+# in a spawned process while phase 8 waits on its servers.
+BESIDE = (("9b", conformance_on_card), ("10c", inproc_card_vs_cpu))
+
+
+def _beside_main(conn, card: str) -> None:
+    """The side process: each sub-phase of ``BESIDE`` in turn, with the
+    launch counts set to 0 just before it and read just after; sends
+    ``(name, error or None, result, log lines)`` after each."""
+    global _LOG_BUFFER
+    import traceback
+
+    import torch
+
+    torch.set_num_threads(2)  # the servers of phase 8 keep the other cores
+    from multiraft_tpu_torch.engine import kernels
+
+    # Phase 8 reads the card memory its servers add: this process's
+    # context is made before that reading starts.
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    conn.send(("ready", None, None, []))
+
+    for name, fn in BESIDE:
+        _LOG_BUFFER = []
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            res = fn(card, kernels) if name == "9b" else fn(card)
+            res["phase_s"] = time.perf_counter() - t0
+            res["launches"] = dict(kernels.LAUNCHES)
+            log(f"{name}: launches {res['launches']}, {res['phase_s']:.2f} s, in the "
+                f"side process beside phase 8 [{card}]")
+            if max(kernels.LAUNCHES.values()) > 0:
+                raise AssertionError(f"{name}: launches {kernels.LAUNCHES}")
+        except BaseException:
+            conn.send((name, traceback.format_exc(), None, _LOG_BUFFER))
+            conn.close()
+            return
+        conn.send((name, None, res, _LOG_BUFFER))
+    conn.close()
+
+
+class Beside:
+    """The side process (spawned, so it makes its own CUDA context):
+    started before phase 8 (the constructor returns once the process
+    holds its context), read by phases 9 and 10, stopped in every case
+    by :meth:`close`."""
+
+    def __init__(self, card: str) -> None:
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, child = ctx.Pipe(duplex=False)
+        self._proc = ctx.Process(target=_beside_main, args=(child, card), name="smoke-beside")
+        self._proc.start()
+        child.close()
+        self._got: dict = {}
+        try:
+            while not self._conn.poll(1.0):
+                if not self._proc.is_alive():
+                    raise AssertionError(f"the side process died at start "
+                                         f"(exit {self._proc.exitcode})")
+            if self._recv()[0] != "ready":
+                raise AssertionError("the side process did not start")
+        except BaseException:
+            self.close()
+            raise
+
+    def _recv(self) -> tuple:
+        try:
+            return self._conn.recv()
+        except EOFError:  # the process closed its end without sending
+            self._proc.join(timeout=30)
+            raise AssertionError(f"the side process died (exit {self._proc.exitcode}) "
+                                 f"after {sorted(self._got)}") from None
+
+    def wait(self) -> float:
+        """Wait until every sub-phase has sent its result (or one has
+        failed); the seconds waited."""
+        t0 = time.perf_counter()
+        while len(self._got) < len(BESIDE) and not any(e for e, _, _ in self._got.values()):
+            if self._conn.poll(1.0):
+                got, err, res, lines = self._recv()
+                self._got[got] = (err, res, lines)
+            elif not self._proc.is_alive() and not self._conn.poll(0):
+                raise AssertionError(f"the side process died (exit {self._proc.exitcode}) "
+                                     f"after {sorted(self._got)}")
+        return time.perf_counter() - t0
+
+    def result(self, name: str) -> dict:
+        """``name``'s result: its log lines printed, what it raised
+        raised."""
+        self.wait()
+        if name not in self._got:
+            raise AssertionError(f"{name}: not run, an earlier side sub-phase failed")
+        err, res, lines = self._got[name]
+        for line in lines:
+            log(line)
+        if err is not None:
+            raise AssertionError(f"{name} in the side process:\n{err}")
+        return res
+
+    def close(self) -> None:
+        sent = len(self._got) == len(BESIDE) or any(e for e, _, _ in self._got.values())
+        self._proc.join(timeout=30 if sent else 0)
+        if self._proc.is_alive():
+            self._proc.kill()
+            self._proc.join()
+        self._conn.close()
 
 
 def placed_alone(card: str, names) -> dict:
@@ -3747,6 +3943,351 @@ def placed_alone(card: str, names) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the groups-sharded engine (engine/mesh.py)
+# ---------------------------------------------------------------------------
+
+
+def _mesh_world(d) -> tuple:
+    """A driver's planes, mailbox, commit total, delay queue and last
+    metrics, on the host."""
+    return (d.np_state(), d.np_inbox(), d.commits_total, d._delayed,
+            dict(d.last_metrics))
+
+
+def _assert_same_mesh(a, b, what: str) -> None:
+    import numpy as np
+
+    _assert_same(a[:3], b[:3], what)
+    if not _same_delayed(a[3], b[3]):
+        raise AssertionError(f"{what}: delay queues differ")
+    for k in a[4]:
+        if not np.array_equal(np.asarray(a[4][k]), np.asarray(b[4][k])):
+            raise AssertionError(f"{what}: metric {k} differs")
+
+
+def mesh_driver(card: str) -> dict:
+    """11(a): ``EngineDriver(mesh=make_mesh(1))`` at the headline widths
+    (kernels off: the mesh runs the plain tick): elections, a
+    ``BatchedKV`` against a dict model, 5(a)'s fault script under an
+    invariant monitor, a checkpoint restored onto a 1-card mesh and onto
+    a 1-shard CPU mesh (30 more faulted ticks, equal on every plane),
+    and a restore without a mesh refused."""
+    import numpy as np
+
+    from multiraft_tpu_torch.distributed.engine_wire import make_mesh
+    from multiraft_tpu_torch.engine.core import LEADER, EngineConfig
+    from multiraft_tpu_torch.engine.host import EngineDriver
+    from multiraft_tpu_torch.engine.invariants import InvariantMonitor
+    from multiraft_tpu_torch.engine.kv import BatchedKV
+    from multiraft_tpu_torch.engine.mesh import Mesh
+
+    G, P, block, n_faults = HEADLINE["G"], HEADLINE["P"], 50, 100
+    cfg = EngineConfig(use_kernels=False, **HEADLINE)
+    out = {}
+    t0 = time.perf_counter()
+    d = EngineDriver(cfg, seed=11, mesh=make_mesh(1))  # + the zero-collective check
+    out["build_s"] = time.perf_counter() - t0
+    if not d.run_until_quiet_leaders(500):
+        raise AssertionError("11(a): not every group elected a leader")
+    out["elected_at_tick"] = d.tick
+    kv = BatchedKV(d, record_groups=[0, 1])
+    n, groups, pumps, wall, reads = _kv_against_model(kv, G, seed=19)
+    log(f"mesh 11(a): mesh of {make_mesh(1).devices} built in {out['build_s']:.2f} s; "
+        f"leaders everywhere at tick {d.tick}; {n} logged requests over "
+        f"{len(groups)} groups answered in {pumps} pumps ({wall:.2f} s), "
+        f"{reads} reads match the dict model [{card}]")
+    out["kv"] = dict(requests=n, pumps=pumps, s=wall, reads=reads)
+
+    mon = InvariantMonitor(d)
+    mon.observe()
+    d.start_bulk(np.full(G, HEADLINE["INGEST"] * 300, np.int64))
+    d.drop_prob = 0.01
+    crashed, cut = _pick_replicas(np.random.default_rng(5), G, P, n_faults)
+    ms_per_tick = []
+    for b in range(4):  # ticks 0-50-100-150-200 of the run
+        if b == 1:
+            for g, p in crashed:
+                d.set_alive(g, p, False)
+            for g, p in cut:
+                d.partition_replica(g, p, False)
+        if b == 2:
+            for g, p in crashed:
+                d.restart_replica(g, p)
+                mon.note_restart(g, p)
+            for g, p in cut:
+                d.partition_replica(g, p, True)
+            at_heal = d.np_state()["commit"].max(axis=1)
+        t0 = time.perf_counter()
+        d.step(block)
+        ms_per_tick.append((time.perf_counter() - t0) / block * 1e3)
+        mon.observe()
+        mon.prune_below_snapshot_floor()
+    st = d.np_state()
+    advanced = st["commit"].max(axis=1) > at_heal
+    stalled = _full_ring_stalls(st, cfg) & ~advanced
+    if not (advanced | stalled).all():
+        raise AssertionError(
+            f"11(a): groups {np.nonzero(~(advanced | stalled))[0].tolist()[:10]} "
+            f"committed nothing after the heal")
+    out.update(ms_per_tick=ms_per_tick, stalled=int(stalled.sum()))
+    log(f"mesh 11(a): 5(a)'s fault script on the 1-card mesh, ms/tick per 50-tick "
+        f"block {[round(x, 3) for x in ms_per_tick]}; commits advanced after the "
+        f"heal in {int(advanced.sum())} of {G} groups, {int(stalled.sum())} stalled "
+        f"with a full ring of older-term entries [{card}]")
+
+    os.makedirs(SCRATCH, exist_ok=True)
+    path = os.path.join(SCRATCH, "mesh.ckpt")
+    d.save(path)
+    try:
+        EngineDriver.restore(path, device="cuda")
+        raise AssertionError("11(a): a mesh checkpoint restored without a mesh")
+    except ValueError as e:
+        if "1-device mesh" not in str(e):
+            raise
+    t0 = time.perf_counter()
+    on_card = EngineDriver.restore(path, mesh=make_mesh(1))
+    out["restore_card_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = EngineDriver.restore(path, mesh=Mesh(["cpu"]))
+    out["restore_cpu_s"] = time.perf_counter() - t0
+    os.remove(path)
+    st = d.np_state()
+    followers = [(g, int(np.nonzero(st["role"][g] != LEADER)[0][0]))
+                 for g in range(0, G, max(1, G // 5))][:5]
+    drivers = (d, on_card, on_cpu)
+    for b in range(3):  # 30 more ticks, the same faults on all three
+        for x in drivers:
+            if b == 1:
+                for g, p in followers:
+                    x.set_alive(g, p, False)
+            if b == 2:
+                for g, p in followers:
+                    x.restart_replica(g, p)
+            x.step(10)
+    ref = _mesh_world(d)
+    for name, x in (("card", on_card), ("cpu", on_cpu)):
+        _assert_same_mesh(ref, _mesh_world(x), f"11(a) restored on the {name} mesh")
+    if not d.run_until_quiet_leaders(300):
+        raise AssertionError("11(a): not every group has one leader at the end")
+    log(f"mesh 11(a): checkpoint refused without a mesh; restored onto a 1-card "
+        f"mesh in {out['restore_card_s']:.3f} s and a 1-shard CPU mesh in "
+        f"{out['restore_cpu_s']:.3f} s, all three equal on every plane, mailbox "
+        f"plane, delay queue and metric after 30 more faulted ticks "
+        f"({ref[2]} commits); one leader in every group at tick {d.tick} [{card}]")
+    return out
+
+
+def mesh_shards(card: str) -> dict:
+    """11(b): a 4-shard mesh on the one card equals the same mesh on the
+    CPU over 300 ticks of drops, crashes, partitions and reorder; then
+    the 4-shard mesh at the headline widths: 100 firehose ticks under
+    ``assert_zero_collectives``, and the firehose ms per tick of the
+    4-shard and the 1-shard mesh."""
+    import numpy as np
+
+    from multiraft_tpu_torch.engine.core import EngineConfig
+    from multiraft_tpu_torch.engine.host import EngineDriver
+    from multiraft_tpu_torch.engine.mesh import (
+        Mesh, assert_zero_collectives, make_sharded_run_ticks,
+    )
+
+    out = {}
+    cfg = EngineConfig(G=64, P=3, L=64, E=8, INGEST=8)
+    pair = [EngineDriver(cfg, seed=23, mesh=Mesh([dev] * 4)) for dev in ("cuda:0", "cpu")]
+    rng = np.random.default_rng(23)
+    t0 = time.perf_counter()
+    for t in range(300):
+        acts = []
+        if t % 20 == 0:
+            acts.append(("start_bulk", np.full(64, 30, np.int64)))
+        if t == 40:
+            acts += [("drop", 0.1), ("reorder", 2 / 3)]
+        if t % 30 == 15:
+            g, p = int(rng.integers(64)), int(rng.integers(3))
+            acts.append(("crash", (g, p)))
+        if t % 30 == 25:
+            acts.append(("restart_all", None))
+        if t % 50 == 10:
+            g, p = int(rng.integers(64)), int(rng.integers(3))
+            acts.append(("cut", (g, p)))
+        if t % 50 == 35:
+            acts.append(("heal_all", None))
+        if t == 240:
+            acts += [("drop", 0.0), ("reorder", 0.0)]
+        for x in pair:
+            for kind, arg in acts:
+                if kind == "start_bulk":
+                    x.start_bulk(arg)
+                elif kind == "drop":
+                    x.drop_prob = arg
+                elif kind == "reorder":
+                    x.set_reorder(arg, 2, 8)
+                elif kind == "crash":
+                    x.set_alive(*arg, False)
+                elif kind == "restart_all":
+                    for g, p in zip(*np.nonzero(~x.np_state(["alive"])["alive"])):
+                        x.restart_replica(int(g), int(p))
+                elif kind == "cut":
+                    x.partition_replica(*arg, False)
+                elif kind == "heal_all":
+                    for g, p in zip(*np.nonzero(~x.replica_conn)):
+                        x.partition_replica(int(g), int(p), True)
+            x.step()
+        _assert_same_mesh(_mesh_world(pair[0]), _mesh_world(pair[1]), f"11(b) tick {t}")
+        if pair[0]._np_rng.bit_generator.state != pair[1]._np_rng.bit_generator.state:
+            raise AssertionError(f"11(b) tick {t}: reorder RNGs differ")
+    out["card_vs_cpu"] = dict(ticks=300, s=time.perf_counter() - t0,
+                              commits=pair[0].commits_total)
+    log(f"mesh 11(b): 4 shards on {card.split(',')[0]} equal 4 CPU shards on every "
+        f"plane, mailbox plane, delay queue and metric after each of 300 ticks of "
+        f"drops, crashes, partitions and 2/3 reorder ({pair[0].commits_total} "
+        f"commits, {out['card_vs_cpu']['s']:.2f} s) [{card}]")
+
+    big = EngineConfig(use_kernels=False, **HEADLINE)
+    four = Mesh(["cuda:0"] * 4)
+    t0 = time.perf_counter()
+    d4 = EngineDriver(big, seed=3, mesh=four)
+    out["build4_s"] = time.perf_counter() - t0
+    run = make_sharded_run_ticks(big, four, 100, HEADLINE["INGEST"])
+    t0 = time.perf_counter()
+    ops = assert_zero_collectives(run, d4._state_shards, d4._inbox_shards, d4.key)
+    out["audited"] = dict(ticks=100, shard_ops=ops, s=time.perf_counter() - t0)
+    for name, mesh in (("4 shards", four), ("1 shard", Mesh(["cuda:0"]))):
+        d = d4 if mesh is four else EngineDriver(big, seed=3, mesh=mesh)
+        d.step(20)
+        d.start_bulk(np.full(big.G, HEADLINE["INGEST"] * 100, np.int64))
+        c0 = d.commits_total
+        t0 = time.perf_counter()
+        d.step(100)
+        c1 = d.commits_total
+        wall = time.perf_counter() - t0
+        out[f"firehose {name}"] = dict(ms_per_tick=wall / 100 * 1e3,
+                                       commits=c1 - c0)
+    log(f"mesh 11(b): headline widths on 4 shards of one card: built in "
+        f"{out['build4_s']:.2f} s; 100 firehose ticks audited by "
+        f"assert_zero_collectives ({ops} shard ops, none outside its shard, "
+        f"{out['audited']['s']:.2f} s); firehose ms/tick 4 shards "
+        f"{out['firehose 4 shards']['ms_per_tick']:.3f}, 1 shard "
+        f"{out['firehose 1 shard']['ms_per_tick']:.3f} [{card}]")
+    return out
+
+
+def mesh_fleet(card: str) -> dict:
+    """11(c), second half: the reference's fleet-of-meshes case
+    (``tests/test_distributed.py:1078``) as two durable ``serve-shardkv
+    --mesh-devices 1`` processes on the one card, gids [1] and [2]:
+    join 1, six Puts, join 2 (shards migrate across the processes),
+    every value read back, an Append, SIGTERM exit 0 for both."""
+    import shutil
+
+    from multiraft_tpu_torch.distributed.engine_clerks import EngineFleetClerk
+    from multiraft_tpu_torch.distributed.launch import reserve_ports
+    from multiraft_tpu_torch.distributed.tcp import RpcNode
+
+    ports = reserve_ports(2, "127.0.0.1")
+    addr = {1: ("127.0.0.1", ports[0]), 2: ("127.0.0.1", ports[1])}
+    srvs = []
+    for i in range(2):
+        data = os.path.join(SCRATCH, f"meshfleet{i}")
+        shutil.rmtree(data, ignore_errors=True)
+        extra = ["--port", str(ports[i]), "--gids", str(i + 1),
+                 "--peer", f"{2 - i}=127.0.0.1:{ports[1 - i]}", "--mesh-devices", "1"]
+        srvs.append(_Server(data, 2, cmd="serve-shardkv", env={},
+                            log=f"meshfleet{i}.log", extra=extra))
+    node = RpcNode()
+    out = {}
+    try:
+        for s in srvs:
+            s.launch()
+        out["ready_s"] = [s.wait_ready() for s in srvs]
+        pends = [node.client_end(*addr[g]) for g in (1, 2)]
+        _admin(node, pends, "join", [1], 1)
+        ck = _Blocking(lambda n: EngineFleetClerk(
+            n.sched, {g: n.client_end(*a) for g, a in addr.items()},
+            make_end=n.client_end))
+        try:
+            kv = {chr(110 + i): f"v{i}" for i in range(6)}
+            for k, v in kv.items():
+                ck.run(ck.ck.put(k, v))
+            out["join_s"] = _admin(node, pends, "join", [2], 2)
+            got = {k: ck.run(ck.ck.get(k)) for k in kv}
+            if got != kv:
+                raise AssertionError(f"11(c) fleet: read back {got} != {kv}")
+            ck.run(ck.ck.append("n", "+mesh"))
+            if ck.run(ck.ck.get("n")) != kv["n"] + "+mesh":
+                raise AssertionError("11(c) fleet: append lost")
+        finally:
+            ck.close()
+        cfg = _rpc(node, pends[0], "EngineShardKV.config")
+        out["shards_on_2"] = sum(1 for g in cfg[1] if g == 2)
+        if not 0 < out["shards_on_2"] < NSHARDS:
+            raise AssertionError(f"11(c) fleet: shards {cfg[1]}")
+        for s in srvs:
+            s.sigterm()
+    finally:
+        for s in srvs:
+            s.stop()
+        node.close()
+    log(f"mesh 11(c): two serve-shardkv --mesh-devices 1 fleet processes ready in "
+        f"{out['ready_s']} s; join 2 moved {out['shards_on_2']} shards across in "
+        f"{out['join_s']:.2f} s, every value read back, SIGTERM exit 0 [{card}]")
+    return out
+
+
+def mesh_served(card: str) -> dict:
+    """11(c): ``serve-kv --groups 10000 --mesh-devices 1``, durable, as a
+    child process at the headline serve widths: s to ``ready`` and card
+    memory; 8 clerks against a dict model; ``kill -9`` in a firehose and
+    a restart on the same directory, restoring onto the mesh, every
+    acknowledged write read back; SIGTERM exit 0; then the fleet of
+    meshes (:func:`mesh_fleet`)."""
+    import shutil
+
+    G = HEADLINE["G"]
+    data = os.path.join(SCRATCH, "mesh_serve")
+    shutil.rmtree(data, ignore_errors=True)
+    os.makedirs(SCRATCH, exist_ok=True)
+    out, model = {}, {}
+    srv = _Server(data, G, extra=["--mesh-devices", "1"], log="mesh_serve.log")
+    try:
+        _, used0 = _gpu_mib(-1)
+        out["ready_s"] = srv.start()
+        out["card_mib"], how = _card_memory(srv, used0)
+        log(f"mesh 11(c): serve-kv --mesh-devices 1 ready in {out['ready_s']:.2f} s "
+            f"at G={G}; {how} [{card}]")
+        out.update(serve_traffic(srv.port, card, model, full=False, tag="mesh 11(c)"))
+        out.update(_kill9_in_firehose(srv, model, card, "mesh 11(c)", frames=8))
+        if out["restores"] != 1:
+            raise AssertionError(f"11(c): restores {out['restores']} after the kill")
+        srv.sigterm()
+    finally:
+        srv.stop()
+    out["fleet"] = mesh_fleet(card)
+    return out
+
+
+MESH_PHASES = {"11a": mesh_driver, "11b": mesh_shards, "11c": mesh_served}
+
+
+def phase_mesh(card: str, kernels, names=tuple(MESH_PHASES)) -> dict:
+    """Phase 11: each sub-phase with the launch counts set to 0 just
+    before it and read just after.  The mesh refuses the kernels (the
+    reference's mesh runs without its Pallas kernels), so each count
+    must stay 0."""
+    out = {}
+    for name in names:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out[name] = MESH_PHASES[name](card)
+        out[name]["phase_s"] = time.perf_counter() - t0
+        out[name]["launches"] = dict(kernels.LAUNCHES)
+        log(f"{name}: launches {out[name]['launches']}, {out[name]['phase_s']:.2f} s [{card}]")
+        if max(kernels.LAUNCHES.values()) > 0:
+            raise AssertionError(f"{name}: launches on the mesh {kernels.LAUNCHES}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3757,7 +4298,17 @@ def main() -> int:
     from multiraft_tpu_torch.engine import kernels
 
     if sys.argv[1:2] == ["--only"]:
-        placed_alone(card_line(), sys.argv[2:] or ["10a", "10b", "10c"])
+        names = sys.argv[2:] or ["10a", "10b", "10c", "11a", "11b", "11c"]
+        unknown = [n for n in names if n not in MESH_PHASES and n not in ("10a", "10b", "10c")]
+        if unknown:
+            print(f"chip_smoke: unknown sub-phases {unknown}", file=sys.stderr)
+            return 2
+        card = card_line()
+        if any(n.startswith("10") for n in names):
+            placed_alone(card, [n for n in names if n.startswith("10")])
+        mesh_names = [n for n in names if n in MESH_PHASES]
+        if mesh_names:
+            log(f"mesh: {json.dumps(phase_mesh(card, kernels, mesh_names))} [{card}]")
         return 0
     t_start = time.perf_counter()
     card = card_line()
@@ -3789,14 +4340,26 @@ def main() -> int:
         raise AssertionError(f"serve: launches in this process {kernels.LAUNCHES}")
     log(f"serve: phase 7 in {served['phase_s']:.2f} s [{card}]")
     t0 = time.perf_counter()
-    shard_served = phase_shard_serve(card, kernels)
-    log(f"shard serve: phase 8 in {time.perf_counter() - t0:.2f} s [{card}]")
+    beside = Beside(card)
+    log(f"side process: holds its card context after {time.perf_counter() - t0:.2f} s "
+        f"[{card}]")
+    try:
+        t0 = time.perf_counter()
+        shard_served = phase_shard_serve(card, kernels)
+        log(f"shard serve: phase 8 in {time.perf_counter() - t0:.2f} s [{card}]")
+        # Phases 9 and 10 time the card alone: the side process ends first.
+        log(f"side process: 9b and 10c done {beside.wait():.2f} s after phase 8 [{card}]")
+        t0 = time.perf_counter()
+        verified = phase_verify(card, kernels, beside)
+        log(f"verify: phase 9 in {time.perf_counter() - t0:.2f} s [{card}]")
+        t0 = time.perf_counter()
+        placed = phase_placed(card, kernels, beside)
+        log(f"placed: phase 10 in {time.perf_counter() - t0:.2f} s [{card}]")
+    finally:
+        beside.close()
     t0 = time.perf_counter()
-    verified = phase_verify(card, kernels)
-    log(f"verify: phase 9 in {time.perf_counter() - t0:.2f} s [{card}]")
-    t0 = time.perf_counter()
-    placed = phase_placed(card, kernels)
-    log(f"placed: phase 10 in {time.perf_counter() - t0:.2f} s [{card}]")
+    meshed = phase_mesh(card, kernels)
+    log(f"mesh: phase 11 in {time.perf_counter() - t0:.2f} s [{card}]")
 
     line = []
     for name in ("quorum_commit", "vote_tally"):
@@ -3822,6 +4385,9 @@ def main() -> int:
                 "shape", "ms", "warm_ms", "host_ms", "plain_ms", "bound_ms",
                 "bound_by", "floor_ms", "floor_warm_ms",
             )},
+            # Phase 11: the mesh runs the plain tick, as the reference's
+            # mesh runs without its Pallas kernels.
+            "mesh_launches": {k: v["launches"][name] for k, v in meshed.items()},
         })
     log(f"firehose: {json.dumps(fh)}")
     log(f"operations: {json.dumps(ops)}")
@@ -3830,6 +4396,7 @@ def main() -> int:
     log(f"shard served: {json.dumps(shard_served)} [{card}]")
     log(f"verified: {json.dumps(verified)} [{card}]")
     log(f"placed: {json.dumps(placed)} [{card}]")
+    log(f"mesh: {json.dumps(meshed)} [{card}]")
     log(f"total: {time.perf_counter() - t_start:.1f} s [{card}]")
     log(json.dumps({"kernels": line}))
     print(json.dumps({

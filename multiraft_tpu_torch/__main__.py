@@ -160,8 +160,9 @@ def _add_serve_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--checkpoint-every", type=float, default=30.0,
                    metavar="SECONDS")
     p.add_argument("--mesh-devices", type=int, default=0,
-                   help="run the tick over this many local cards "
-                        "(refused: no mesh driver yet)")
+                   help="split the groups over this many local cards "
+                        "(CPU shards with --device cpu; G must divide "
+                        "evenly)")
     p.add_argument("--device", default="cuda",
                    help="torch device of the engine (cuda = own the card; "
                         "cpu for tests)")

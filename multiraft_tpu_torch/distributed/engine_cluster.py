@@ -94,8 +94,8 @@ class EngineProcessCluster:
             self.spec["data_dir"] = data_dir
             self.spec["checkpoint_every_s"] = checkpoint_every_s
         if mesh_devices:
-            # Multi-card mode: refused by the server (no mesh driver
-            # in this package yet).
+            # Multi-card mode: the engine splits its groups over this
+            # many shards (CPU shards when device is "cpu").
             self.spec["mesh_devices"] = mesh_devices
         self.proc: Optional[subprocess.Popen] = None
 
@@ -375,8 +375,7 @@ class EngineFleetCluster:
                 spec["data_dir"] = os.path.join(data_dir, f"proc-{i}")
                 spec["checkpoint_every_s"] = checkpoint_every_s
             if mesh_devices:
-                # Refused by the server (no mesh driver in this package
-                # yet).
+                # Each process splits its engine over this many shards.
                 spec["mesh_devices"] = mesh_devices
             if chaos_seed is not None:
                 # Distinct per-process streams from one harness seed.

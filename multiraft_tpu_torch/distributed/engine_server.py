@@ -690,12 +690,13 @@ def serve_engine_kv(
     — a kill -9'd process restarted on the same dir recovers every
     acknowledged write.
 
-    ``mesh_devices`` > 0 asks for the multi-card mesh path, which this
-    package does not have yet (:func:`~.engine_wire.make_mesh`
-    raises)."""
+    With ``mesh_devices`` > 0, the engine splits its groups over that
+    many shards (:func:`~.engine_wire.make_mesh`: local cards, or CPU
+    shards with ``device="cpu"``; G must divide evenly); checkpoints
+    restore back onto the same-size mesh."""
     dev = resolve_device(device)  # no card: refuse before listening
-    if mesh_devices:
-        make_mesh(mesh_devices)  # raises: no mesh driver yet
+    # Too many cards: refused before listening, never served elsewhere.
+    mesh = make_mesh(mesh_devices, dev) if mesh_devices else None
     node = RpcNode(listen=True, host=host, port=port)
     sched = node.sched
 
@@ -704,7 +705,9 @@ def serve_engine_kv(
         if data_dir:
             ckpt = os.path.join(data_dir, "engine.ckpt")
             if os.path.exists(ckpt):
-                driver = EngineDriver.restore(ckpt, device=dev)
+                driver = EngineDriver.restore(
+                    ckpt, device=None if mesh else dev, mesh=mesh
+                )
         if driver is not None:
             node.obs.metrics.inc("engine.restores")
             kv = BatchedKV(driver, record_groups=list(record_groups or []))
@@ -721,7 +724,9 @@ def serve_engine_kv(
                 E=int(os.environ.get("MULTIRAFT_SERVE_E", "8")),
                 INGEST=int(os.environ.get("MULTIRAFT_SERVE_INGEST", "8")),
             )
-            driver = EngineDriver(cfg, seed=seed, device=dev)
+            driver = EngineDriver(
+                cfg, seed=seed, device=None if mesh else dev, mesh=mesh
+            )
             kv = BatchedKV(driver, record_groups=list(record_groups or []))
             driver.run_until_quiet_leaders(2000)
         # Warm-up BEFORE the readiness line, the same pumps as the

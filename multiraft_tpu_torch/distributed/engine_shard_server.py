@@ -1274,9 +1274,10 @@ def serve_engine_shardkv(
 
     The engine lives on ``device``: ``None`` means the card, and
     without one the server refuses to start (before it listens);
-    ``"cpu"`` is for tests.  ``mesh_devices`` > 0 asks for the
-    multi-card mesh path, which this package does not have yet
-    (:func:`~.engine_wire.make_mesh` raises).
+    ``"cpu"`` is for tests.  With ``mesh_devices`` > 0 the engine
+    splits its groups over that many shards
+    (:func:`~.engine_wire.make_mesh`; the engine's G must divide
+    evenly), and a checkpoint restores back onto the same-size mesh.
 
     Fleet mode: pass ``gids`` (the global gids THIS process hosts; the
     local engine is sized ``len(gids)+1``) and ``peer_addrs`` (owner
@@ -1291,8 +1292,8 @@ def serve_engine_shardkv(
     from ..engine.shardkv import BatchedShardKV
 
     dev = resolve_device(device)  # no card: refuse before listening
-    if mesh_devices:
-        make_mesh(mesh_devices)  # raises: no mesh driver yet
+    # Too many cards: refused before listening, never served elsewhere.
+    mesh = make_mesh(mesh_devices, dev) if mesh_devices else None
     node = RpcNode(listen=True, host=host, port=port)
     sched = node.sched
     local_gids = list(gids) if gids is not None else None
@@ -1321,7 +1322,9 @@ def serve_engine_shardkv(
         if data_dir:
             ckpt = os.path.join(data_dir, "engine.ckpt")
             if os.path.exists(ckpt):
-                driver = EngineDriver.restore(ckpt, device=dev)
+                driver = EngineDriver.restore(
+                    ckpt, device=None if mesh else dev, mesh=mesh
+                )
         restored = driver is not None
         if restored:
             node.obs.metrics.inc("engine.restores")
@@ -1329,7 +1332,9 @@ def serve_engine_shardkv(
             cfg = EngineConfig(
                 G=G_local, P=max(3, int(replicas)), L=64, E=8, INGEST=8
             )
-            driver = EngineDriver(cfg, seed=seed, device=dev)
+            driver = EngineDriver(
+                cfg, seed=seed, device=None if mesh else dev, mesh=mesh
+            )
             if voters is not None and len(set(voters)) < cfg.P:
                 # Spare ENGINE REPLICA slots: only ``voters`` vote; the
                 # remaining rows park dead until the placement

@@ -80,11 +80,31 @@ def route_group(key: str, G: int) -> int:
     return zlib.crc32(key.encode()) % G
 
 
-def make_mesh(n_devices: int) -> Any:
-    """A ``groups`` mesh over ``n_devices`` local cards: the multi-card
-    serving path (``--mesh-devices``).  This package has no mesh driver
-    yet (ROADMAP A7), so asking for one is refused."""
-    raise NotImplementedError(
-        f"mesh_devices={n_devices}: multiraft_tpu_torch has no mesh "
-        "driver yet (ROADMAP A7); serve from one card (mesh_devices=0)"
-    )
+def make_mesh(n_devices: int, device: Any = None) -> Any:
+    """A 1-D ``groups`` mesh (:class:`~multiraft_tpu_torch.engine.mesh.Mesh`)
+    for the multi-card serving path (``--mesh-devices``): the server's
+    state lives split across ``n_devices`` shards, each ticking on its
+    own, and the same driver/pump/checkpoint path serves one card and
+    several alike.
+
+    ``device`` ``None`` or ``"cuda"``: the first ``n_devices`` visible
+    cards, one shard each; asking for more cards than are visible is
+    refused, never served from the CPU.  ``"cpu"`` (tests):
+    ``n_devices`` shards on the CPU."""
+    import torch
+
+    from ..engine.mesh import Mesh
+
+    if n_devices <= 0:
+        raise ValueError(f"mesh_devices must be positive, got {n_devices}")
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cpu":
+        return Mesh([dev] * n_devices)
+    if dev.type != "cuda":
+        raise ValueError(f"make_mesh: no mesh on {dev.type} devices")
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n_devices > visible:
+        raise ValueError(
+            f"mesh_devices={n_devices} > {visible} visible devices"
+        )
+    return Mesh([torch.device("cuda", i) for i in range(n_devices)])

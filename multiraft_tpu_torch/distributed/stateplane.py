@@ -370,7 +370,10 @@ class StatePlane:
         if self.sync:
             for _seq, w in self._unacked.get(gid, ()):
                 if w:
-                    self._shipped_wal.add(w)
+                    # Lazy-deletion twin of the _unshipped heap, as in
+                    # ship acks: covered() discards each seq as it pops
+                    # the heap, and these seqs are already in the heap.
+                    self._shipped_wal.add(w)  # graftlint: disable=unbounded-queue
         for d in (self._tail_seq, self._tail, self._snap,
                   self._snap_seq, self._snap_ts, self._unacked,
                   self._covered_ts):
@@ -468,7 +471,9 @@ class StatePlane:
                     meta = self._flying.pop(p, None) or (None, "", 0, 0)
                     sent += self._apply_reply(meta[0], p, reply, *meta[1:])
                 if flying:
-                    self._busy.add(p)
+                    # A set of process indices, rebuilt every round:
+                    # at most n_procs entries.
+                    self._busy.add(p)  # graftlint: disable=unbounded-queue
             order = self._ship_order()
         for gid in order:
             standbys = choose_standbys(
@@ -499,7 +504,8 @@ class StatePlane:
 
     def _deliver(self, sb: int, payload: bytes, meta: tuple):
         if self.poll is not None:
-            self._busy.add(sb)
+            # One entry per standby process, at most n_procs.
+            self._busy.add(sb)  # graftlint: disable=unbounded-queue
             self._flying[sb] = meta
         return self.send(sb, payload)
 

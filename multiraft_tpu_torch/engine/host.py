@@ -9,7 +9,13 @@ accumulates metrics.
 
 The driver runs on one device, named at construction: ``device=None``
 means ``"cuda"``, and a driver asked for a card that is not there
-raises instead of carrying on on the CPU.  The PRNG key stays on the
+raises instead of carrying on on the CPU.  Or it runs on a
+:class:`~.mesh.Mesh`: the groups split over the mesh's devices, each
+shard ticking on its own (engine/mesh.py).  ``driver.state`` and
+``driver.inbox`` then read as the global values, assembled on the
+mesh's first device, and an assignment splits the value back, so every
+host operation below works unchanged on a mesh; the tick loop itself
+keeps to the per-shard lists.  The PRNG key stays on the
 host, so per-tick key derivation costs no device launch; device values
 reach the host only through :attr:`EngineDriver.last_metrics`,
 :meth:`EngineDriver.np_state` and the fused batches' fetch, and each
@@ -40,6 +46,7 @@ from ..utils.metrics import Metrics
 from .core import (
     FOLLOWER,
     LEADER,
+    SCALAR_METRIC_KEYS,
     EngineConfig,
     EngineState,
     Mailbox,
@@ -124,18 +131,25 @@ def mask_active(mb: Mailbox, fn) -> Mailbox:
 
 
 def apply_faults(
-    mailbox: Mailbox, key: torch.Tensor, drop_prob: float, cfg: EngineConfig
+    mailbox: Mailbox,
+    key: torch.Tensor,
+    drop_prob: float,
+    cfg: EngineConfig,
+    g0: int = 0,
 ) -> Mailbox:
     """Drop each in-flight message independently with ``drop_prob``:
     one uniform draw per channel from ``split(key, 4)``, compared in
-    float32 as the reference does."""
-    shape = (cfg.G, cfg.P, cfg.P)
+    float32 as the reference does.  ``mailbox`` may be the block of
+    groups ``g0..`` of the whole outbox (a mesh shard): its draws are
+    then that block's rows of the whole outbox's draw."""
+    shape = (mailbox.ar_active.shape[0], cfg.P, cfg.P)
+    offset = g0 * cfg.P * cfg.P
     keys = prng.split(key, len(_ACTIVE_FIELDS))
     p = float(np.float32(drop_prob))
 
     def drop(name, a):
         k = keys[_ACTIVE_FIELDS.index(name)]
-        return a & (prng.uniform(k, shape, a.device) >= p)
+        return a & (prng.uniform(k, shape, a.device, offset) >= p)
 
     return mask_active(mailbox, drop)
 
@@ -155,6 +169,32 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def _np_gather(shards: Sequence, fields: Optional[Sequence[str]] = None):
+    """Per-shard states or mailboxes as one dict of global numpy planes."""
+    first = shards[0]._asdict()
+    out = {}
+    for k in first if fields is None else fields:
+        if first[k].dim() == 0:
+            out[k] = _np(first[k])
+        else:
+            out[k] = np.concatenate([_np(getattr(s, k)) for s in shards])
+    return out
+
+
+def _metric_np(metrics: Dict[str, Any], k: str) -> np.ndarray:
+    """One metric on the host.  On a mesh a metric is a list of
+    per-shard values: scalar lanes reduce (max for ``max_term``, the sum
+    for the others), per-group blocks concatenate."""
+    v = metrics[k]
+    if not isinstance(v, list):
+        return _np(v)
+    from .mesh import reduce_scalar
+
+    if k in SCALAR_METRIC_KEYS:
+        return np.asarray(reduce_scalar(k, [_np(x)[0] for x in v]), np.int32)
+    return np.concatenate([_np(x) for x in v])
+
+
 def _set(t: torch.Tensor, *writes) -> torch.Tensor:
     """A copy of ``t`` with ``(index, value)`` writes applied in order:
     the out-of-place form of the reference's chained ``.at[...].set``.
@@ -171,16 +211,134 @@ class EngineDriver:
         cfg: EngineConfig,
         seed: int = 0,
         device: Union[None, str, torch.device] = None,
+        mesh=None,
+        check_zero_collectives: bool = True,
     ) -> None:
+        """``mesh``: an optional :class:`~.mesh.Mesh`.  The driver then
+        splits its groups over the mesh's devices (``device`` must be
+        None) and, by default, checks on one step at construction that
+        no shard's tick reaches outside its shard
+        (:func:`~.mesh.assert_zero_collectives`)."""
+        if mesh is not None:
+            device = self._mesh_device(cfg, mesh, device)
         self.device = resolve_device(device)
         self._init_host(cfg, seed)
-        self.state: EngineState = init_state(
-            cfg, prng.fold_in(self.key, 0), self.device
+        state = init_state(cfg, prng.fold_in(self.key, 0), self.device)
+        inbox = empty_mailbox(cfg, self.device)
+        if mesh is None:
+            self.state, self.inbox = state, inbox
+            return
+        self._attach_mesh(mesh, state, inbox)
+        if check_zero_collectives:
+            from .mesh import assert_zero_collectives
+
+            assert_zero_collectives(
+                self._mesh_tick, self._state_shards, self._inbox_shards,
+                self._mesh_cmds(False), self.key,
+            )
+
+    @staticmethod
+    def _mesh_device(cfg: EngineConfig, mesh, device) -> torch.device:
+        """Validate a mesh for ``cfg``; its first device holds the
+        driver's global views."""
+        from .mesh import local_config
+
+        if device is not None:
+            raise ValueError(
+                "EngineDriver: a mesh driver takes its devices from the "
+                "mesh; pass device=None"
+            )
+        if cfg.use_kernels:
+            # The reference cannot either: its Pallas calls do not
+            # lower under jax.shard_map (check_vma refuses their
+            # out_shape), and bench.py turns them off in mesh mode.
+            raise ValueError(
+                "EngineDriver: use_kernels=True with a mesh — the mesh "
+                "runs the plain tick, as the reference's mesh runs "
+                "without its Pallas kernels; pass use_kernels=False"
+            )
+        local_config(cfg, mesh)  # G % n != 0 raises
+        for dev in mesh.devices:
+            resolve_device(dev)
+        return mesh.devices[0]
+
+    def _attach_mesh(self, mesh, state: EngineState, inbox: Mailbox) -> None:
+        from .mesh import make_sharded_tick, shard_arrays
+
+        self.mesh = mesh
+        self._mesh_tick = make_sharded_tick(self.cfg, mesh)
+        self._state_shards = shard_arrays(self.cfg, mesh, state)
+        self._inbox_shards = shard_arrays(self.cfg, mesh, inbox)
+        self._state_view = self._inbox_view = None
+        self._commits_dev = [0] * mesh.size
+
+    # -- global state and inbox (split over the shards on a mesh) --------
+
+    @property
+    def state(self) -> EngineState:
+        if self.mesh is None:
+            return self._state
+        if self._state_view is None:
+            from .mesh import gather_arrays
+
+            self._state_view = gather_arrays(self._state_shards, self.device)
+        return self._state_view
+
+    @state.setter
+    def state(self, st: EngineState) -> None:
+        if self.mesh is None:
+            self._state = st
+            return
+        self._state_shards = self._rescatter(
+            st, self._state_view, self._state_shards
         )
-        self.inbox: Mailbox = empty_mailbox(cfg, self.device)
+        self._state_view = st
+
+    @property
+    def inbox(self) -> Mailbox:
+        if self.mesh is None:
+            return self._inbox
+        if self._inbox_view is None:
+            from .mesh import gather_arrays
+
+            self._inbox_view = gather_arrays(self._inbox_shards, self.device)
+        return self._inbox_view
+
+    @inbox.setter
+    def inbox(self, mb: Mailbox) -> None:
+        if self.mesh is None:
+            self._inbox = mb
+            return
+        self._inbox_shards = self._rescatter(
+            mb, self._inbox_view, self._inbox_shards
+        )
+        self._inbox_view = mb
+
+    def _rescatter(self, new, view, shards) -> list:
+        """Split an assigned global value over the shards.  A plane that
+        is the very tensor of the last global view read is unchanged:
+        its shards keep their tensors."""
+        from .mesh import shard_plane
+
+        parts = {
+            k: shard_plane(self.cfg, self.mesh, v)
+            for k, v in new._asdict().items()
+            if view is None or getattr(view, k) is not v
+        }
+        if not parts:
+            return shards
+        return [
+            s._replace(**{k: p[i] for k, p in parts.items()})
+            for i, s in enumerate(shards)
+        ]
 
     def _init_host(self, cfg: EngineConfig, seed: int) -> None:
         self.cfg = cfg
+        self.mesh = None
+        self._mesh_tick = None
+        self._state_shards = self._inbox_shards = None
+        self._state_view = self._inbox_view = None
+        self._edge_shards: Optional[list] = None
         self.key = prng.PRNGKey(seed)  # host-resident uint32[2]
         self.drop_prob = 0.0
         # Per-edge enables [G, src, dst] (labrpc per-ClientEnd enable);
@@ -234,8 +392,8 @@ class EngineDriver:
         """The last tick's metrics.  A serial step leaves them on the
         device; the first read copies them to numpy (one sync)."""
         m = self._last_metrics
-        if any(isinstance(v, torch.Tensor) for v in m.values()):
-            m = self._last_metrics = {k: _np(v) for k, v in m.items()}
+        if any(isinstance(v, (torch.Tensor, list)) for v in m.values()):
+            m = self._last_metrics = {k: _metric_np(m, k) for k in m}
         return m
 
     @last_metrics.setter
@@ -271,6 +429,7 @@ class EngineDriver:
         including those held in the reorder delay queue: a cut-then-heal
         between two ticks must not resurrect them."""
         self._edge_dev = None
+        self._edge_shards = None
         if not self.edge_up.all():
             self.inbox = self._mask_partitions(self.inbox)
         if self._delayed:
@@ -287,6 +446,19 @@ class EngineDriver:
     def _mask_partitions(self, mb: Mailbox) -> Mailbox:
         m = self._edge_mask()
         return mask_active(mb, lambda _, a: a & m)
+
+    def _mask_partitions_sharded(self, outs: list) -> list:
+        """The edge mask on each shard's own block of groups."""
+        if self._edge_shards is None:
+            gl = self.cfg.G // self.mesh.size
+            self._edge_shards = [
+                torch.tensor(self.edge_up[i * gl:(i + 1) * gl], device=dev)
+                for i, dev in enumerate(self.mesh.devices)
+            ]
+        return [
+            mask_active(mb, lambda _, a, m=m: a & m)
+            for mb, m in zip(outs, self._edge_shards)
+        ]
 
     def set_reorder(
         self, prob: float, min_ticks: int = 2, max_ticks: int = 8
@@ -309,11 +481,36 @@ class EngineDriver:
         row-major, one ``integers`` draw per picked message — so the
         same seed holds the same messages.  Test-path only: copies the
         mailbox to the host, so keep it off for throughput runs."""
-        if self.reorder_prob == 0.0 and not any(
-            release <= self.tick for release, *_ in self._delayed
-        ):
+        if not self._reorder_due():
             return mb  # nothing to pick, nothing due: skip the copy
         host = {f: np.array(_np(getattr(mb, f))) for f in Mailbox._fields}
+        host = self._reorder_host(host)
+        return Mailbox(
+            **{f: torch.tensor(v, device=self.device) for f, v in host.items()}
+        )
+
+    def _apply_reorder_sharded(self, outs: list) -> list:
+        """:meth:`_apply_reorder` over the shards' outboxes: the delay
+        queue works on the global view, on the host, and each shard gets
+        its block back on its own device."""
+        if not self._reorder_due():
+            return outs
+        host = self._reorder_host(_np_gather(outs))
+        gl = self.cfg.G // self.mesh.size
+        return [
+            Mailbox(**{
+                f: torch.tensor(v[i * gl:(i + 1) * gl], device=dev)
+                for f, v in host.items()
+            })
+            for i, dev in enumerate(self.mesh.devices)
+        ]
+
+    def _reorder_due(self) -> bool:
+        return self.reorder_prob > 0.0 or any(
+            release <= self.tick for release, *_ in self._delayed
+        )
+
+    def _reorder_host(self, host: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         rng = self._np_rng
         if self.reorder_prob > 0.0:
             for prefix, fields in _CHANNELS.items():
@@ -327,7 +524,7 @@ class EngineDriver:
                     # Every entry carries a release tick at most
                     # tick + reorder_max, so the queue holds at most
                     # reorder_max ticks of traffic.
-                    self._delayed.append(
+                    self._delayed.append(  # graftlint: disable=unbounded-queue
                         (release, prefix, (int(g), int(s), int(dst)), payload)
                     )
                 act[pick] = False
@@ -343,9 +540,7 @@ class EngineDriver:
                 else:
                     held.append(item)
             self._delayed = held
-        return Mailbox(
-            **{f: torch.tensor(v, device=self.device) for f, v in host.items()}
-        )
+        return host
 
     def _drop_delayed_of(self, g: int, p: int) -> None:
         """Held messages to or from replica (g, p) die with it."""
@@ -595,7 +790,10 @@ class EngineDriver:
     def start(self, g: int, command: Any = None) -> None:
         """Queue a command for group g."""
         self.backlog[g] += 1
-        self._pending_payloads[g].append(command)
+        # Drained by the tick's ingest at INGEST commands a group a
+        # tick; admission control in front of the servers bounds a
+        # sustained overload.
+        self._pending_payloads[g].append(command)  # graftlint: disable=unbounded-queue
 
     def start_bulk(self, counts: np.ndarray) -> None:
         self.backlog += counts
@@ -691,53 +889,79 @@ class EngineDriver:
         return self._step_serial(n)
 
     def fused_eligible(self) -> bool:
-        """True when the fused path may run: pipeline enabled and no
-        reorder chaos active or held."""
+        """True when the fused path may run: pipeline enabled, no mesh
+        (its scalar metrics arrive as per-shard lanes) and no reorder
+        chaos active or held."""
         return (
             self._pipeline_on
+            and self.mesh is None
             and self.reorder_prob == 0.0
             and not self._delayed
         )
+
+    def _mesh_cmds(self, have_backlog: bool) -> list:
+        """This tick's Start() intake, one ``i32[G/n]`` per shard."""
+        gl = self.cfg.G // self.mesh.size
+        if have_backlog:
+            cmds = np.minimum(self.backlog, self.cfg.INGEST).astype(np.int32)
+            return [
+                torch.tensor(cmds[i * gl:(i + 1) * gl], device=dev)
+                for i, dev in enumerate(self.mesh.devices)
+            ]
+        return [
+            torch.zeros(gl, dtype=torch.int32, device=dev)
+            for dev in self.mesh.devices
+        ]
+
+    def _tick_mesh(self, tick_key: torch.Tensor, have_backlog: bool):
+        """One tick over the mesh: each shard's tick, then the fault
+        model on each shard's outbox: the drops and the edge mask are
+        the whole outbox's, sliced; the reorder queue works on the
+        global view."""
+        cfg = self.cfg
+        gl = cfg.G // self.mesh.size
+        states, outs, metrics = self._mesh_tick(
+            self._state_shards, self._inbox_shards,
+            self._mesh_cmds(have_backlog), tick_key,
+        )
+        if self.drop_prob > 0.0:
+            fk = prng.fold_in(tick_key, 0xFA)
+            outs = [
+                apply_faults(mb, fk, self.drop_prob, cfg, g0=i * gl)
+                for i, mb in enumerate(outs)
+            ]
+        if not self.edge_up.all():
+            outs = self._mask_partitions_sharded(outs)
+        if self.reorder_prob > 0.0 or self._delayed:
+            outs = self._apply_reorder_sharded(outs)
+        self._state_shards, self._inbox_shards = states, outs
+        self._state_view = self._inbox_view = None
+        self._commits_dev = [
+            a + c for a, c in zip(self._commits_dev, metrics["commits"])
+        ]
+        return metrics
 
     def _step_serial(self, n: int = 1) -> Dict[str, Any]:
         assert not self._inflight, (
             "serial step with fused tick batches in flight — complete "
             "them first, or the two tick streams interleave"
         )
-        cfg = self.cfg
         self.metrics.inc("ticks", n)
         for _ in range(n):
             self.tick += 1
             t_wall = time.perf_counter() if self.tracer else 0.0
             tick_key = prng.fold_in(self.key, self.tick)
             have_backlog = bool(self.backlog.any())
-            if have_backlog:
-                new_cmds = torch.tensor(
-                    np.minimum(self.backlog, cfg.INGEST).astype(np.int32),
-                    device=self.device,
-                )
+            if self.mesh is not None:
+                metrics = self._tick_mesh(tick_key, have_backlog)
             else:
-                new_cmds = torch.zeros(
-                    cfg.G, dtype=torch.int32, device=self.device
-                )
-            state, outbox, metrics = tick_impl(
-                cfg, self.state, self.inbox, new_cmds, tick_key
-            )
-            if self.drop_prob > 0.0:
-                outbox = apply_faults(
-                    outbox, prng.fold_in(tick_key, 0xFA), self.drop_prob, cfg
-                )
-            if not self.edge_up.all():
-                outbox = self._mask_partitions(outbox)
-            if self.reorder_prob > 0.0 or self._delayed:
-                outbox = self._apply_reorder(outbox)
-            self.state, self.inbox = state, outbox
+                metrics = self._tick_one(tick_key, have_backlog)
             if have_backlog:
                 # Host sync only while commands are in flight.
-                accepted = _np(metrics["accepted"])
-                starts = _np(metrics["start_index"])
+                accepted = _metric_np(metrics, "accepted")
+                starts = _metric_np(metrics, "start_index")
                 terms = (
-                    _np(metrics["accept_term"])
+                    _metric_np(metrics, "accept_term")
                     if self.on_payload_bound else None
                 )
                 for g in np.nonzero(accepted)[0]:
@@ -747,11 +971,9 @@ class EngineDriver:
                         int(g), k, int(starts[g]),
                         int(terms[g]) if terms is not None else None,
                     )
-            # Accumulate on device; converted lazily by readers.
-            self._commits_dev = self._commits_dev + metrics["commits"]
             self.last_metrics = metrics
             if self.tracer:
-                commits = int(metrics["commits"])  # forces the sync
+                commits = int(_metric_np(metrics, "commits"))  # forces the sync
                 self.metrics.observe(
                     "tick_wall_s", time.perf_counter() - t_wall
                 )
@@ -763,13 +985,39 @@ class EngineDriver:
                     track="engine",
                     tick=self.tick,
                     commits=commits,
-                    leaders=int(metrics["leaders"]),
+                    leaders=int(_metric_np(metrics, "leaders")),
                 )
                 self.tracer.counter(
                     "consensus", now_us,
                     {"commits": commits, "backlog": int(self.backlog.sum())},
                 )
         return self.last_metrics
+
+    def _tick_one(self, tick_key: torch.Tensor, have_backlog: bool):
+        """One tick on the one device, then the fault model."""
+        cfg = self.cfg
+        if have_backlog:
+            new_cmds = torch.tensor(
+                np.minimum(self.backlog, cfg.INGEST).astype(np.int32),
+                device=self.device,
+            )
+        else:
+            new_cmds = torch.zeros(cfg.G, dtype=torch.int32, device=self.device)
+        state, outbox, metrics = tick_impl(
+            cfg, self.state, self.inbox, new_cmds, tick_key
+        )
+        if self.drop_prob > 0.0:
+            outbox = apply_faults(
+                outbox, prng.fold_in(tick_key, 0xFA), self.drop_prob, cfg
+            )
+        if not self.edge_up.all():
+            outbox = self._mask_partitions(outbox)
+        if self.reorder_prob > 0.0 or self._delayed:
+            outbox = self._apply_reorder(outbox)
+        self.state, self.inbox = state, outbox
+        # Accumulate on device; converted lazily by readers.
+        self._commits_dev = self._commits_dev + metrics["commits"]
+        return metrics
 
     # -- fused pipeline (engine/pipeline.py) ------------------------------
 
@@ -780,6 +1028,10 @@ class EngineDriver:
         :meth:`complete_ticks` with the fetched record."""
         from .pipeline import PendingTicks, step_ticks
 
+        if self.mesh is not None:
+            raise RuntimeError(
+                "dispatch_ticks: a mesh driver steps serially (step())"
+            )
         t_dispatch = time.perf_counter()
         self.metrics.inc("ticks", n)
         tick0 = self.tick
@@ -805,7 +1057,9 @@ class EngineDriver:
             accepts_dev=rec["accepted"].sum(dim=0, dtype=torch.int32),
             t_dispatch=t_dispatch,
         )
-        self._inflight.append(pending)
+        # Bounded by the serving pipeline depth: the pump dispatches only
+        # while fewer batches are in flight, and step() drains them all.
+        self._inflight.append(pending)  # graftlint: disable=unbounded-queue
         return pending
 
     def complete_ticks(self, pending, host_rec) -> Dict[str, Any]:
@@ -863,7 +1117,10 @@ class EngineDriver:
 
     @property
     def commits_total(self) -> int:
-        return int(self._commits_dev) + self.total_commits
+        c = self._commits_dev
+        if isinstance(c, list):  # one accumulator per mesh shard
+            return sum(int(x) for x in c) + self.total_commits
+        return int(c) + self.total_commits
 
     def run_until_quiet_leaders(self, max_ticks: int = 500) -> bool:
         """Advance until every group has exactly one live leader."""
@@ -903,10 +1160,10 @@ class EngineDriver:
             )
         blob = {
             "version": self.CKPT_VERSION,
-            "mesh_devices": 0,
+            "mesh_devices": self.mesh.size if self.mesh is not None else 0,
             "cfg": self.cfg,
-            "state": {k: _np(v) for k, v in self.state._asdict().items()},
-            "inbox": {k: _np(v) for k, v in self.inbox._asdict().items()},
+            "state": self.np_state(),
+            "inbox": self.np_inbox(),
             "tick": self.tick,
             "key": _np(self.key),
             "backlog": self.backlog,
@@ -927,29 +1184,39 @@ class EngineDriver:
         with open(tmp, "wb") as f:
             pickle.dump(blob, f, protocol=pickle.HIGHEST_PROTOCOL)
             f.flush()
-            os.fsync(f.fileno())
+            # A deliberate sync on the loop thread: a durable server
+            # truncates its WAL right after this returns, so the
+            # checkpoint must be on disk first.
+            os.fsync(f.fileno())  # graftlint: disable=blocking-in-callback
         os.replace(tmp, path)  # atomic: a crash mid-save keeps the old one
         # Make the rename itself durable: a caller may truncate its own
         # log right after this returns, and POSIX gives no cross-file
         # ordering on power loss.
         dfd = os.open(os.path.dirname(path) or ".", os.O_RDONLY)
         try:
-            os.fsync(dfd)
+            os.fsync(dfd)  # graftlint: disable=blocking-in-callback
         finally:
             os.close(dfd)
         return path
 
     @classmethod
     def restore(
-        cls, path: str, device: Union[None, str, torch.device] = None
+        cls,
+        path: str,
+        device: Union[None, str, torch.device] = None,
+        mesh=None,
     ) -> "EngineDriver":
         """Rebuild a driver from :meth:`save` — this package's or the
         reference's (its classes map to this package's by name, see
         :func:`~multiraft_tpu_torch.convert.load_checkpoint`).  The
-        driver lands on ``device`` (``None``: the card) and continues
-        from the exact saved tick; the checkpoint's ``extra`` dict is
-        ``driver.restored_extra``.  A checkpoint of a multi-device mesh
-        driver is refused: this package has no mesh driver."""
+        driver lands on ``device`` (``None``: the card), or on ``mesh``,
+        and continues from the exact saved tick; the checkpoint's
+        ``extra`` dict is ``driver.restored_extra``.
+
+        A checkpoint taken from a mesh driver must be restored onto a
+        mesh of the same size — coming back on one device would put the
+        whole state where a part of it was; a one-device checkpoint may
+        be split onto a mesh."""
         from .. import convert
 
         with open(path, "rb") as f:
@@ -959,17 +1226,28 @@ class EngineDriver:
                 f"checkpoint version {blob.get('version')} != {cls.CKPT_VERSION}"
             )
         saved_mesh = blob.get("mesh_devices", 0)
-        if saved_mesh:
+        if saved_mesh and mesh is None:
             raise ValueError(
                 f"checkpoint was taken from a {saved_mesh}-device mesh "
-                f"driver; this package restores single-device checkpoints "
-                f"only"
+                f"driver; pass restore(..., mesh=) with a "
+                f"{saved_mesh}-device mesh to re-shard it"
+            )
+        if saved_mesh and mesh is not None and mesh.size != saved_mesh:
+            raise ValueError(
+                f"checkpoint was taken on {saved_mesh} devices but "
+                f"restore got a {mesh.size}-device mesh"
             )
         d = object.__new__(cls)  # skip __init__: no throwaway device state
+        if mesh is not None:
+            device = cls._mesh_device(blob["cfg"], mesh, device)
         d.device = resolve_device(device)
         d._init_host(blob["cfg"], seed=0)
-        d.state = convert.state_from_numpy(blob["state"], d.device)
-        d.inbox = convert.mailbox_from_numpy(blob["inbox"], d.device)
+        state = convert.state_from_numpy(blob["state"], d.device)
+        inbox = convert.mailbox_from_numpy(blob["inbox"], d.device)
+        if mesh is None:
+            d.state, d.inbox = state, inbox
+        else:
+            d._attach_mesh(mesh, state, inbox)
         d.tick = blob["tick"]
         d.key = convert.key_from_numpy(blob["key"])
         d.backlog = blob["backlog"]
@@ -1000,8 +1278,16 @@ class EngineDriver:
         self, fields: Optional[Sequence[str]] = None
     ) -> Dict[str, np.ndarray]:
         """The state's planes on the host (``fields``: only those)."""
+        if self.mesh is not None:
+            return _np_gather(self._state_shards, fields)
         st = self.state._asdict()
         return {k: _np(st[k]) for k in (st if fields is None else fields)}
+
+    def np_inbox(self) -> Dict[str, np.ndarray]:
+        """The in-flight mailbox's planes on the host."""
+        if self.mesh is not None:
+            return _np_gather(self._inbox_shards)
+        return {k: _np(v) for k, v in self.inbox._asdict().items()}
 
     def leaders_per_group(self) -> np.ndarray:
         st = self.np_state()

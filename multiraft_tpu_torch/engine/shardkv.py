@@ -764,7 +764,7 @@ class BatchedShardKV(FrontierService):
             rep.prev = rep.cur
         # Bounded by construction: the free-slot check above caps
         # hosted groups at the engine's fixed G-1 slots.
-        self.gids.append(gid)
+        self.gids.append(gid)  # graftlint: disable=unbounded-queue
         self._g2l[gid] = loc
         self._l2g[loc] = gid
         self.reps[gid] = rep

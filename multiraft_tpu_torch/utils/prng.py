@@ -94,11 +94,15 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     return _key(a, b, key.device)
 
 
-def _iota_words(shape: Sequence[int], device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+def _iota_words(
+    shape: Sequence[int], device: torch.device, offset: int = 0
+) -> Tuple[torch.Tensor, torch.Tensor]:
     n = 1
     for s in shape:
         n *= int(s)
-    lo = torch.arange(n, dtype=torch.int64, device=device).reshape(tuple(shape))
+    lo = torch.arange(
+        offset, offset + n, dtype=torch.int64, device=device
+    ).reshape(tuple(shape))
     return lo >> 32, lo & _M32
 
 
@@ -114,12 +118,19 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 
 
 def random_bits(
-    key: torch.Tensor, shape: Sequence[int], device: Optional[torch.device] = None
+    key: torch.Tensor,
+    shape: Sequence[int],
+    device: Optional[torch.device] = None,
+    offset: int = 0,
 ) -> torch.Tensor:
-    """32 random bits per element (int64 tensor of uint32 values)."""
+    """32 random bits per element (int64 tensor of uint32 values).
+
+    ``offset`` skips that many elements of the flat draw: the bits of a
+    block of rows of a larger draw, equal to slicing the whole draw
+    (each element's counter is its flat index)."""
     device = key.device if device is None else torch.device(device)
     k1, k2 = _words(key)
-    hi, lo = _iota_words(shape, device)
+    hi, lo = _iota_words(shape, device, offset)
     a, b = _threefry2x32(k1, k2, hi, lo)
     return a ^ b
 
@@ -146,9 +157,13 @@ def randint(
 
 
 def uniform(
-    key: torch.Tensor, shape: Sequence[int], device: Optional[torch.device] = None
+    key: torch.Tensor,
+    shape: Sequence[int],
+    device: Optional[torch.device] = None,
+    offset: int = 0,
 ) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, jnp.float32)`` in [0, 1)."""
-    bits = random_bits(key, shape, device)
+    """``jax.random.uniform(key, shape, jnp.float32)`` in [0, 1)
+    (``offset`` as in :func:`random_bits`)."""
+    bits = random_bits(key, shape, device, offset)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     return f - 1.0

@@ -3,12 +3,12 @@ splitting one gid space, shards migrating between them over
 ``pull_shard``/``delete_shard`` RPCs, every engine on the CPU.
 
 The engine-fleet tests of the reference's ``tests/test_distributed.py``
-(all but the two mesh tests), run against the port's
-``EngineFleetCluster``: cross-process migration, batch frames, durable
-restart, linearizability across a migration (checked by the port's
-porcupine and the reference's, with one verdict), a crash
-mid-migration, and the redo of a write acknowledged before a
-migration.  These are the first tests of the port's ``ShardWalReplay``
+(its two mesh tests are ported in ``tests/test_torch_mesh.py``), run
+against the port's ``EngineFleetCluster``: cross-process migration,
+batch frames, durable restart, linearizability across a migration
+(checked by the port's porcupine and the reference's, with one
+verdict), a crash mid-migration, and the redo of a write acknowledged
+before a migration.  These are the first tests of the port's ``ShardWalReplay``
 and fleet clerks.  Two cross-package fleets: the port's fleet clerk
 against the reference's fleet, and a mixed fleet of one process of each
 package migrating shards between them.

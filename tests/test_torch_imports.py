@@ -94,7 +94,9 @@ def test_whole_package_imports_with_jax_unimportable():
         "          'distributed.placement', 'harness.fleet', 'harness.observe',\n"
         "          'harness.bundle', 'harness.nemesis', 'harness._openloop',\n"
         "          'harness.loadcurve', 'harness.split_harness',\n"
-        "          'analysis.postmortem'):\n"
+        "          'analysis.postmortem', 'engine.mesh', 'analysis.core',\n"
+        "          'analysis.dataflow', 'analysis.lockgraph', 'analysis.planes',\n"
+        "          'analysis.registry', 'analysis.rules', 'analysis.__main__'):\n"
         "    assert 'multiraft_tpu_torch.' + n in names, n\n"
         "print(len(names))\n"
     )
@@ -172,6 +174,8 @@ HOST_MODULES = (
     "distributed.placement", "distributed.cluster", "harness",
     "harness.fleet", "harness.observe", "harness.bundle", "harness.nemesis",
     "harness.loadcurve", "harness.split_harness", "analysis.postmortem",
+    "engine.mesh", "analysis", "analysis.core", "analysis.dataflow",
+    "analysis.lockgraph", "analysis.planes", "analysis.registry",
 )
 
 
