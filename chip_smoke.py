@@ -117,7 +117,8 @@ and prints no result line):
    on, seed 7): 200 warm-up ticks, 200 at INGEST and one traced chunk,
    then 3 traced chunks of 200 ticks (``bench.py`` runs 3 such runs;
    one here) with the leaders of 48 groups killed at each interior
-   boundary by :func:`apply_leader_kills`; the records go through
+   boundary by ``multiraft_tpu_torch.bench``'s ``apply_leader_kills``
+   (``traced_run`` and ``verify_run`` from there too); the records go through
    ``engine.bench_verify`` (commit latency of every entry, porcupine
    over 128 sampled groups, the native DFS on 8 of them), which must
    find OK with 0 entries unaccounted and each kernel launched at least
@@ -194,10 +195,24 @@ and prints no result line):
    the heal; each regime's ticks, commits, dead and cut replicas and ms
    a tick, and ``soak OK`` required.
 
+13. BASELINE config #5 end to end, with the launch counters reset just
+   before and read just after: ``multiraft_tpu_torch.bench.run_config5``
+   on the card with both kernels at G=100,000 x P=5 (L=112, E=INGEST=28;
+   200 boot ticks, a 100-tick warm chunk, 3 rounds of 100 traced ticks,
+   10% hot groups at the full ingest, 1% of the leaders killed a round):
+   ms a tick and ticks/s, commits/s (hot and cold), commit latency
+   p50/p99, the card's memory; 0 entries unaccounted, each kernel
+   launched once a tick, and at least 90% of the revived hot ex-leaders
+   rebased past the last index they held when they died (the snapshot
+   fast-forward); each kernel against its plain version on the run's
+   final state (timed, with its bound, grid and tail tile), the jitter
+   draw at 100,000 x 5 against the CPU's, and the tick's roofline bound
+   (``benchmarks/roofline.py``) beside the measured tick and 9(a)'s.
+
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --only 10a 10b 10c 11a 11b 11c 12a 12b`` runs the
+``python3 chip_smoke.py --only 10a 10b 10c 11a 11b 11c 12a 12b 13`` runs the
 named sub-phases alone (phase 10's with the controller's time in each
 transport and map verb) and prints no contract lines.
 """
@@ -232,14 +247,6 @@ def log(msg: str) -> None:
         _LOG_BUFFER.append(msg)
         return
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, iters: int) -> dict:
@@ -734,31 +741,6 @@ def _pick_replicas(rng, G: int, P: int, n: int):
     return picks[:n], picks[n:]
 
 
-def _full_ring_stalls(st: dict, cfg):
-    """Per group, whether its leader can neither ingest nor commit again:
-    the ring above its commit is full (no capacity for a new entry) and
-    holds no entry of the leader's own term, so the current-term commit
-    rule never fires, and compaction, which waits for the commit, never
-    frees a slot.  The reference engine stalls in the same state (a new
-    leader appends a no-op only while a config change is pending):
-    tests/test_torch_chaos.py::test_full_ring_stall_in_lockstep drives
-    both engines into it in lockstep and holds this predicate equal."""
-    import numpy as np
-
-    from multiraft_tpu_torch.engine.core import LEADER
-
-    rows = np.arange(cfg.G)
-    lead = (st["role"] == LEADER) & st["alive"]
-    ld = np.where(lead, st["term"], -1).argmax(axis=1)  # the max-term leader
-    term, commit = st["term"][rows, ld], st["commit"][rows, ld]
-    last = st["base"][rows, ld] + st["log_len"][rows, ld]
-    full = cfg.L - 2 - cfg.E - st["log_len"][rows, ld] < 1
-    idx = commit[:, None] + np.arange(1, cfg.L + 1)[None, :]
-    ring = st["log_term"][rows, ld]
-    own = (ring[rows[:, None], idx % cfg.L] == term[:, None]) & (idx <= last[:, None])
-    return lead[rows, ld] & full & (commit < last) & ~own.any(axis=1)
-
-
 def ops_faults(card: str) -> dict:
     """5(a), 5(b) and 5(e): the headline deployment under a firehose
     backlog and 1% drops, with an invariant monitor every 50 ticks and a
@@ -768,6 +750,7 @@ def ops_faults(card: str) -> dict:
     faults and compared."""
     import numpy as np
 
+    from multiraft_tpu_torch.bench import full_ring_stalls
     from multiraft_tpu_torch.engine.core import LEADER, EngineConfig
     from multiraft_tpu_torch.engine.host import EngineDriver
     from multiraft_tpu_torch.engine.invariants import InvariantMonitor
@@ -814,7 +797,7 @@ def ops_faults(card: str) -> dict:
         observe()
     st = d.np_state()
     advanced = st["commit"].max(axis=1) > at_heal
-    stalled = _full_ring_stalls(st, cfg) & ~advanced
+    stalled = full_ring_stalls(st, cfg) & ~advanced
     if not (advanced | stalled).all():
         raise AssertionError(
             f"faults: groups {np.nonzero(~(advanced | stalled))[0].tolist()[:10]} "
@@ -1371,6 +1354,7 @@ def sharded_split(card: str) -> dict:
     kill-mid-migration scenario and the survivor finishes alone."""
     import numpy as np
 
+    from multiraft_tpu_torch.bench import full_ring_stalls
     from multiraft_tpu_torch.engine.core import EngineConfig
     from multiraft_tpu_torch.engine.kv import KVOp
     from multiraft_tpu_torch.engine.split import SplitKV
@@ -1422,7 +1406,7 @@ def sharded_split(card: str) -> dict:
         rig.wait_migrated([1, 2], 4000)
     except TimeoutError:
         st = survivor.driver.np_state()
-        stalled = np.nonzero(_full_ring_stalls(st, cfg))[0].tolist()
+        stalled = np.nonzero(full_ring_stalls(st, cfg))[0].tolist()
         raise AssertionError(f"split: migration did not finish on the survivor; groups "
                              f"stalled by the full-ring predicate: {stalled}")
     for k in keys:
@@ -1433,7 +1417,7 @@ def sharded_split(card: str) -> dict:
     for s, g in enumerate(latest.shards):
         if g == 2 and survivor.reps[1].shards[s].data:
             raise AssertionError(f"split: gid 1 kept shard {s} after the migration")
-    stalls = int(_full_ring_stalls(survivor.driver.np_state(), cfg).sum())
+    stalls = int(full_ring_stalls(survivor.driver.np_state(), cfg).sum())
     shard_s = time.perf_counter() - t0
     pumps = np.asarray(rig.pump_s) * 1e3
     slab = np.asarray(rig.slab_bytes)
@@ -2872,169 +2856,20 @@ def phase_shard_serve(card: str, kernels) -> dict:
 # the per-replica Raft simulator
 # ---------------------------------------------------------------------------
 
-# bench.py's timed window (bench.py:201-209, :298): chunks of 200 ticks,
-# 3 chunks a run, 48 leaders killed at each interior chunk boundary, 128
-# sampled groups.  RUNS is cut from 3 to 1 to fit the smoke's time.
+# The bench's timed window (multiraft_tpu_torch/bench.py, bench.py's
+# defaults): chunks of 200 ticks, 3 chunks a run, 48 leaders killed at
+# each interior chunk boundary, 128 sampled groups.  RUNS is cut from 3
+# to 1 to fit the smoke's time.
 BENCH = dict(CHUNK=200, N_CHUNKS=3, RUNS=1, N_FAULT=48, N_SAMPLE=128)
 # The same script at G=64, on the card and on the CPU.
 BENCH_SMALL = dict(G=64, CHUNK=100, N_CHUNKS=3, N_FAULT=8, N_SAMPLE=16)
-
-
-def apply_leader_kills(st, mb, kill_groups, prev_killed):
-    """The port's counterpart of ``bench.py``'s ``apply_leader_kills``
-    (``bench.py:85``): revive the previous round's victims (role
-    follower, votes cleared, ``last_heard`` now; commit and applied are
-    not rewound), then kill the current leader of every group in
-    ``kill_groups``, the live leader at the highest term, and drop the
-    victims' in-flight messages.  ``prev_killed`` and the returned
-    victims are ``(g_array, p_array)``.  Returns ``(state, inbox,
-    killed)``."""
-    import numpy as np
-    import torch
-
-    from multiraft_tpu_torch.engine.host import mask_active
-
-    dev = st.alive.device
-    host = lambda t: t.detach().cpu().numpy().copy()
-    alive, role, votes = host(st.alive), host(st.role), host(st.votes)
-    pre_votes, last_heard = host(st.pre_votes), host(st.last_heard)
-    term = host(st.term).astype(np.int64)
-    g_prev, p_prev = prev_killed
-    if len(g_prev):
-        alive[g_prev, p_prev] = True
-        role[g_prev, p_prev] = 0
-        votes[g_prev, p_prev, :] = False
-        pre_votes[g_prev, p_prev, :] = False
-        last_heard[g_prev, p_prev] = int(st.tick_no)
-    lead_term = np.where((role == 2) & alive, term, np.int64(-1))
-    sel = lead_term[kill_groups]
-    has_leader = sel.max(axis=1) >= 0
-    g_kill = np.asarray(kill_groups)[has_leader]
-    p_kill = sel.argmax(axis=1)[has_leader]
-    alive[g_kill, p_kill] = False
-    on = lambda a: torch.from_numpy(a).to(dev)
-    st = st._replace(alive=on(alive), role=on(role), votes=on(votes),
-                     pre_votes=on(pre_votes), last_heard=on(last_heard))
-    if len(g_kill):
-        dead = np.zeros(alive.shape, bool)
-        dead[g_kill, p_kill] = True
-        dead = on(dead)
-        edge_ok = ~(dead[:, :, None] | dead[:, None, :])
-        mb = mask_active(mb, lambda _, a: a & edge_ok)
-    return st, mb, (g_kill, p_kill)
-
-
-def bench_victims(G: int, n_fault: int, n_sample: int):
-    """``bench.py``'s sampled groups and kill set (``bench.py:298-307``):
-    half the victims are sampled groups, half spread over the rest."""
-    import numpy as np
-
-    sample = [int(g) for g in sorted(set(np.linspace(0, G - 1, n_sample, dtype=int)))]
-    kill = set()
-    if n_fault:
-        half = min(n_fault // 2, len(sample))
-        for i in np.linspace(0, len(sample) - 1, half, dtype=int):
-            kill.add(sample[int(i)])
-        for g in np.linspace(0, G - 2, n_fault - half, dtype=int):
-            g = int(g)
-            kill.add(g + 1 if (g in kill or g in sample) else g)
-    return sample, np.asarray(sorted(kill), np.int64)
-
-
-def traced_run(cfg, device: str, chunk: int, n_chunks: int, n_fault: int,
-               n_sample: int, seed: int = 7) -> dict:
-    """``bench.py``'s verified, faulted run (``bench.py:193-345``) on
-    ``device``: 200 warm-up ticks without ingest, 200 at INGEST, one
-    traced chunk outside the window, then ``n_chunks`` traced chunks
-    with the leaders of ``n_fault`` groups killed at each interior
-    boundary.  Each chunk's records are copied to the host once, outside
-    its timed region.  Keys: ``fold_in(PRNGKey(seed), 1, 2, 3, 10+c)``."""
-    import numpy as np
-    import torch
-
-    from multiraft_tpu_torch.engine.core import (
-        empty_mailbox,
-        init_state,
-        run_ticks,
-        run_ticks_traced,
-    )
-    from multiraft_tpu_torch.utils import prng
-
-    dev = torch.device(device)
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    key = prng.PRNGKey(seed)
-    state = init_state(cfg, key, dev)
-    inbox = empty_mailbox(cfg, dev)
-    t0 = time.perf_counter()
-    state, inbox = run_ticks(cfg, state, inbox, chunk, 0, prng.fold_in(key, 1))
-    state, inbox = run_ticks(cfg, state, inbox, chunk, cfg.INGEST, prng.fold_in(key, 2))
-    state, inbox, _ = run_ticks_traced(
-        cfg, state, inbox, chunk, cfg.INGEST, prng.fold_in(key, 3)
-    )
-    sync()
-    warm_s = time.perf_counter() - t0
-    i64 = lambda t: t.detach().cpu().numpy().astype(np.int64)
-    seed_last = i64((state.base + state.log_len).amax(dim=1))
-    seed_commit = i64(state.commit.amax(dim=1))
-    sample, kill_gs = bench_victims(cfg.G, n_fault, n_sample)
-    prev_killed = (np.zeros(0, np.int64), np.zeros(0, np.int64))
-    n_kills = 0
-    chunks, tick_ms, commits = [], [], []
-    prev = seed_commit
-    for c in range(n_chunks):
-        if n_fault and c > 0:
-            state, inbox, prev_killed = apply_leader_kills(
-                state, inbox, kill_gs, prev_killed
-            )
-            n_kills += len(prev_killed[0])
-        sync()
-        t0 = time.perf_counter()
-        state, inbox, rec = run_ticks_traced(
-            cfg, state, inbox, chunk, cfg.INGEST, prng.fold_in(key, 10 + c)
-        )
-        sync()
-        dt = time.perf_counter() - t0
-        chunks.append({k: v.cpu().numpy() for k, v in rec.items()})
-        cur = i64(state.commit.amax(dim=1))
-        commits.append(int((cur - prev).sum()))
-        prev = cur
-        tick_ms.append(dt / chunk * 1e3)
-    return dict(chunks=chunks, seed_last=seed_last, seed_commit=seed_commit,
-                state=state, sample=sample, n_kills=n_kills, tick_ms=tick_ms,
-                commits=commits, warm_s=warm_s)
-
-
-def verify_run(run: dict, cfg) -> dict:
-    """``bench_verify`` over a :func:`traced_run`, as ``bench.py:382-425``
-    runs it; the checker path of each oracle group is counted."""
-    from multiraft_tpu_torch.engine import bench_verify as bv
-
-    for k in bv.CHECKER_PATHS:
-        bv.CHECKER_PATHS[k] = 0
-    recs = bv.concat_records(run["chunks"])
-    prep = bv.prepare_records(recs, run["seed_last"], run["seed_commit"])
-    lat = bv.latency_histogram(recs, run["seed_last"], run["seed_commit"], prep=prep)
-    t0 = time.perf_counter()
-    porc = bv.verify_sampled_groups(
-        recs, run["seed_last"], run["seed_commit"], run["sample"],
-        run["state"], cfg, prep=prep,
-    )
-    return dict(recs=recs, lat=lat, porc=porc, verify_s=time.perf_counter() - t0,
-                paths=dict(bv.CHECKER_PATHS))
-
-
-def _stalled_sampled(run: dict, cfg) -> list:
-    """Sampled groups in the reference's full-ring stall (ROADMAP C),
-    by phase 5's predicate on the run's final state."""
-    st = {k: v.detach().cpu().numpy() for k, v in run["state"]._asdict().items()}
-    stalled = _full_ring_stalls(st, cfg)
-    return [g for g in run["sample"] if stalled[g]]
 
 
 def headline_verified(card: str, kernels) -> dict:
     """9(a): the headline deployment traced with faults and verified."""
     import numpy as np
 
+    from multiraft_tpu_torch.bench import _stalled_sampled, traced_run, verify_run
     from multiraft_tpu_torch.engine.core import EngineConfig
     from multiraft_tpu_torch.porcupine.native import native_available
 
@@ -3243,6 +3078,7 @@ class _Acked:
     def __init__(self, fleet) -> None:
         self.ck = fleet.clerk()
         self.model, self.history = {}, []
+        self.wrong = {}
 
     def append(self, key: str, tag: str) -> None:
         from multiraft_tpu_torch.porcupine.types import OP_APPEND, KvInput, KvOutput, Operation
@@ -3254,8 +3090,18 @@ class _Acked:
         self.model[key] = self.model.get(key, "") + tag
 
     def lost(self) -> int:
-        """Acknowledged keys whose value does not read back exactly."""
-        return sum(self.ck.get(k, timeout=120.0) != v for k, v in self.model.items())
+        """Acknowledged keys whose value does not read back exactly; each
+        such key's missing and surplus tags are kept in ``wrong``."""
+        self.wrong = {}
+        for k, v in self.model.items():
+            got = self.ck.get(k, timeout=120.0)
+            if got != v:
+                want_tags, got_tags = v.split(","), got.split(",")
+                self.wrong[k] = dict(
+                    missing=[t for t in want_tags if t and t not in got_tags],
+                    surplus=sorted({t for t in got_tags if t and got_tags.count(t) > want_tags.count(t)}),
+                    want_len=len(v), got_len=len(got))
+        return len(self.wrong)
 
     def close(self) -> None:
         self.ck.close()
@@ -3499,9 +3345,11 @@ def placed_failover(card: str, device: str = "cuda", gpp: int = PLACED["gpp"],
             clerk_ops=len(hist),
         )
         if lost:
+            wrong = {k: dict(d, gid=kmap.get(k), victim_gid=kmap.get(k) in victim_gids)
+                     for k, d in list(writer.wrong.items())[:8]}
             raise AssertionError(
                 f"10(a): {lost} acknowledged writes lost; writer "
-                f"{writer.lost()}, controller "
+                f"{len(writer.wrong)} keys {wrong}, prober {len(prober.wrong)}, controller "
                 f"{dict(fleet.node.obs.metrics.counters)}; victim gids {len(victim_gids)}")
         try:
             out["porcupine"] = _porcupine(hist, "10(a) placed fleet")
@@ -3990,6 +3838,7 @@ def mesh_driver(card: str) -> dict:
     and a restore without a mesh refused."""
     import numpy as np
 
+    from multiraft_tpu_torch.bench import full_ring_stalls
     from multiraft_tpu_torch.distributed.engine_wire import make_mesh
     from multiraft_tpu_torch.engine.core import LEADER, EngineConfig
     from multiraft_tpu_torch.engine.host import EngineDriver
@@ -4040,7 +3889,7 @@ def mesh_driver(card: str) -> dict:
         mon.prune_below_snapshot_floor()
     st = d.np_state()
     advanced = st["commit"].max(axis=1) > at_heal
-    stalled = _full_ring_stalls(st, cfg) & ~advanced
+    stalled = full_ring_stalls(st, cfg) & ~advanced
     if not (advanced | stalled).all():
         raise AssertionError(
             f"11(a): groups {np.nonzero(~(advanced | stalled))[0].tolist()[:10]} "
@@ -4525,6 +4374,156 @@ def phase_tour(card: str, kernels, names=("12a", "12b")) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: BASELINE config #5 end to end (the bench's run_config5)
+# ---------------------------------------------------------------------------
+
+# run_config5's shape and schedule, the bench's defaults: G=100,000 x P=5,
+# L=112, E=INGEST=28; 200 boot ticks, a 100-tick warm chunk, 3 rounds of
+# 100 traced ticks.
+CONFIG5_RUN = dict(G=100_000, P=5, chunk=100, rounds=3)
+
+
+def tick_kernel_inputs(cfg, st):
+    """The two kernels' arguments as the tick builds them from state
+    ``st``: ``(commit args, tally args)``."""
+    import torch
+
+    pi = torch.arange(cfg.P, device=st.term.device)
+    own = pi[None] == pi[:, None]
+    eff_match = torch.where(own, (st.base + st.log_len)[..., None], st.match_idx)
+    c_args = (eff_match.contiguous(), st.term.contiguous(), st.commit.contiguous(),
+              st.base.contiguous(), st.base_term.contiguous(),
+              st.log_term.contiguous(), ((st.role == 2) & st.alive).contiguous())
+    t_args = (st.votes.contiguous(), st.role.contiguous(), st.alive.contiguous())
+    return c_args, t_args
+
+
+def config5_on_card(card: str, kernels, headline_tick_ms=None) -> dict:
+    """Phase 13: ``bench.run_config5`` on the card with both kernels, the
+    launch counts set to 0 just before and read just after; then each
+    kernel against its plain version on the run's final state, the
+    jitter draw at 100,000 x 5 against the CPU's, and the tick's roofline
+    bound beside the measured tick (and beside 9(a)'s headline tick)."""
+    import numpy as np
+    import torch
+
+    from multiraft_tpu_torch.bench import run_config5
+    from multiraft_tpu_torch.benchmarks.roofline import bytes_per_tick, tick_bound_ms
+    from multiraft_tpu_torch.utils import prng
+
+    used0 = _gpu_mib(-1)[1]
+    detail = {}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = run_config5(True, "cuda", detail=detail, **CONFIG5_RUN)
+    run_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    used1 = _gpu_mib(-1)[1]
+    cfg, st = detail["cfg"], detail["state"]
+    G, P = cfg.G, cfg.P
+    tick_s = detail["tick_s"]
+    mean_ms = float(np.mean(tick_s)) * 1e3
+    revived = detail["revived_hot"]
+    rebased = sum(base > was for _, _, was, base in revived)
+    out = dict(result=res, run_s=run_s, boot_s=detail["boot_s"], ticks=detail["ticks"],
+               timed_ticks=detail["timed_ticks"], tick_ms=[t * 1e3 for t in tick_s],
+               ticks_per_s=1e3 / mean_ms, commits=detail["commits"],
+               hot_commits=detail["hot_commits"], p50_ticks=detail["lat"]["p50_ticks"],
+               p99_ticks=detail["lat"]["p99_ticks"], revived_hot=len(revived),
+               revived_hot_rebased=rebased, launches=launches,
+               peak_allocated_mib=detail["peak_bytes"] / 2**20,
+               card_used_mib={"before": used0, "after": used1})
+    log(f"13: config #5 G={G} P={P} L={cfg.L} E={cfg.E} INGEST={cfg.INGEST}, kernels "
+        f"on: boot {detail['boot_s']:.2f} s (200 ticks), {detail['timed_ticks']} timed "
+        f"ticks at {mean_ms:.3f} ms a tick ({out['ticks_per_s']:.2f} ticks/s; rounds "
+        f"{', '.join(f'{t * 1e3:.3f}' for t in tick_s)} ms), {run_s:.2f} s in all [{card}]")
+    log(f"13: {res['commits_per_sec']:.1f} commits/s (hot {res['hot_commits_per_sec']:.1f}, "
+        f"cold {res['cold_commits_per_sec']:.1f}); commit latency p50/p99 "
+        f"{out['p50_ticks']}/{out['p99_ticks']} ticks = {res['p50_latency_ms']:.3f}/"
+        f"{res['p99_latency_ms']:.3f} ms; failover p99 {res['failover_p99_ms']:.3f} ms over "
+        f"{res['failover_entries']} entries; {res['latency_entries_measured']} entries "
+        f"measured, {res['latency_unaccounted']} unaccounted [{card}]")
+    log(f"13: {res['leader_kills']} leaders killed, {res['churned_groups']} churned "
+        f"groups; snapshot fast-forward: {res['snapshot_fastforward_replicas']} killed "
+        f"replicas rebased, {rebased} of {len(revived)} revived hot ex-leaders rebased "
+        f"past the last index they held when they died [{card}]")
+    log(f"13: card memory: {out['peak_allocated_mib']:.0f} MiB allocated at the peak by "
+        f"torch; the card's used memory {used0:.0f} MiB before, {used1:.0f} MiB after "
+        f"[{card}]")
+    if res["latency_unaccounted"] or res["latency_entries_measured"] <= 0:
+        raise AssertionError(f"13: latency {res}")
+    if res["leader_kills"] <= 0 or res["churned_groups"] <= 0:
+        raise AssertionError(f"13: no churn: {res}")
+    if not res["hot_commits_per_sec"] > res["cold_commits_per_sec"] > 0:
+        raise AssertionError(f"13: the skew did not show: {res}")
+    if not revived or rebased < 0.9 * len(revived):
+        raise AssertionError(f"13: revived hot ex-leaders rebased {rebased}/{len(revived)}")
+    for name, n in launches.items():
+        if n != detail["ticks"]:
+            raise AssertionError(f"13: kernel {name} launched {n} times in "
+                                 f"{detail['ticks']} ticks")
+
+    # The tick's bound: its bytes (the ring read once to three times)
+    # over the card's memory rate.
+    shapes = [("config5", G, P, cfg.L, cfg.E, mean_ms)]
+    if headline_tick_ms is not None:
+        shapes.append(("headline", HEADLINE["G"], HEADLINE["P"], HEADLINE["L"],
+                       HEADLINE["E"], headline_tick_ms))
+    out["roofline"] = {}
+    for tag, g, p, L, E, ms in shapes:
+        nbytes = [bytes_per_tick(g, p, L, E, k) for k in (1.0, 2.0, 3.0)]
+        bound = [tick_bound_ms(g, p, L, E, k) for k in (1.0, 2.0, 3.0)]
+        out["roofline"][tag] = dict(bytes=nbytes, bound_ms=bound, tick_ms=ms,
+                                    tick_over_bound=ms / bound[0])
+        log(f"13: roofline {tag} G={g} P={p} L={L} E={E}: {nbytes[0]:,.0f}-{nbytes[2]:,.0f} B a "
+            f"tick (ring read 1-3 times), bound {bound[0]:.4f}-{bound[2]:.4f} ms at "
+            f"{H100_BYTES_PER_S / 1e12:.2f} TB/s; measured {ms:.3f} ms, "
+            f"{ms / bound[0]:.1f}x the 1-pass bound [{card}]")
+
+    # Each kernel against its plain version on the run's final state.
+    c_args, t_args = tick_kernel_inputs(cfg, st)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    checks = (
+        ("quorum_commit", lambda: kernels.quorum_commit(*c_args, cfg.quorum),
+         lambda: kernels.quorum_commit_plain(*c_args, cfg.quorum),
+         commit_bound(c_args, cfg.quorum)),
+        ("vote_tally", lambda: kernels.vote_tally(*t_args, cfg.quorum),
+         lambda: kernels.vote_tally_plain(*t_args, cfg.quorum), tally_bound(t_args)),
+    )
+    out["kernels"] = {}
+    for name, kern, plain, (bound_ms, bound_by, nbytes) in checks:
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"13: {name} kernel != plain version on the final state")
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        k_t, p_t = cuda_ms(kern, 200), cuda_ms(plain, 50)
+        plan = kernels.tile_plan(G * P, P, name, sms=sms)
+        tiles = -(-G * P // plan.tile)
+        out["kernels"][name] = dict(
+            launches=launches[name], max_abs_err=err, ms=k_t["cold"],
+            warm_ms=k_t["warm"], plain_ms=p_t["cold"], plain_warm_ms=p_t["warm"],
+            bound_ms=bound_ms, bound_by=bound_by, shape=[G, P, cfg.L],
+            grid=plan.grid, tiles=tiles, tail_rows=G * P - (tiles - 1) * plan.tile)
+        k = out["kernels"][name]
+        log(f"13: kernel {name} on the final state G={G} P={P} L={cfg.L}: equal, "
+            f"{launches[name]} launches in the run; grid {plan.grid} blocks over "
+            f"{tiles} tiles of {plan.tile} rows (tail {k['tail_rows']}); device cold "
+            f"{k_t['cold'] * 1e3:.2f} us, warm {k_t['warm'] * 1e3:.2f} us; plain cold "
+            f"{p_t['cold'] * 1e3:.2f} us, warm {p_t['warm'] * 1e3:.2f} us; bound "
+            f"{bound_ms * 1e3:.3f} us by {bound_by} ({nbytes} B) [{card}]")
+
+    # The election jitter at this width: int64 threefry with 32-bit masks.
+    tk = prng.fold_in(prng.fold_in(prng.PRNGKey(11), 20 + CONFIG5_RUN["rounds"] - 1), 7)
+    on_card = prng.randint(tk, (G, P), cfg.ELECT_MIN, cfg.ELECT_MAX, torch.device("cuda"))
+    on_cpu = prng.randint(tk, (G, P), cfg.ELECT_MIN, cfg.ELECT_MAX, torch.device("cpu"))
+    if not torch.equal(on_card.cpu(), on_cpu):
+        raise AssertionError("13: the jitter draw on the card differs from the CPU's")
+    log(f"13: jitter draw at {G} x {P} on the card equals the CPU's [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4532,13 +4531,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from multiraft_tpu_torch.bench import card_line
     from multiraft_tpu_torch.engine import kernels
 
     if sys.argv[1:2] == ["--only"]:
         tour = ("12a", "12b")
-        names = sys.argv[2:] or ["10a", "10b", "10c", "11a", "11b", "11c", *tour]
-        unknown = [n for n in names
-                   if n not in MESH_PHASES and n not in ("10a", "10b", "10c") + tour]
+        names = sys.argv[2:] or ["10a", "10b", "10c", "11a", "11b", "11c", *tour, "13"]
+        unknown = [n for n in names if n not in MESH_PHASES
+                   and n not in ("10a", "10b", "10c", "13") + tour]
         if unknown:
             print(f"chip_smoke: unknown sub-phases {unknown}", file=sys.stderr)
             return 2
@@ -4551,6 +4551,9 @@ def main() -> int:
         tour_names = [n for n in names if n in tour]
         if tour_names:
             log(f"tour: {json.dumps(phase_tour(card, kernels, tour_names))} [{card}]")
+        if "13" in names:
+            phase_build(kernels)
+            log(f"config5: {json.dumps(config5_on_card(card, kernels))} [{card}]")
         return 0
     t_start = time.perf_counter()
     card = card_line()
@@ -4605,6 +4608,9 @@ def main() -> int:
     t0 = time.perf_counter()
     toured = phase_tour(card, kernels)
     log(f"tour: phase 12 in {time.perf_counter() - t0:.2f} s [{card}]")
+    t0 = time.perf_counter()
+    c5_run = config5_on_card(card, kernels, verified["9a"]["tick_ms_mean"])
+    log(f"config5: phase 13 in {time.perf_counter() - t0:.2f} s [{card}]")
 
     line = []
     for name in ("quorum_commit", "vote_tally"):
@@ -4637,6 +4643,9 @@ def main() -> int:
             # without the kernels, as the reference's do; this process's
             # count.
             "tour_launches": toured["launches"][name],
+            # Phase 13: config #5 end to end; the kernel against its
+            # plain version on that run's final state.
+            "config5_run": c5_run["kernels"][name],
         })
     log(f"firehose: {json.dumps(fh)}")
     log(f"operations: {json.dumps(ops)}")
@@ -4647,6 +4656,7 @@ def main() -> int:
     log(f"placed: {json.dumps(placed)} [{card}]")
     log(f"mesh: {json.dumps(meshed)} [{card}]")
     log(f"tour: {json.dumps(toured)} [{card}]")
+    log(f"config5: {json.dumps(c5_run)} [{card}]")
     log(f"total: {time.perf_counter() - t_start:.1f} s [{card}]")
     log(json.dumps({"kernels": line}))
     print(json.dumps({

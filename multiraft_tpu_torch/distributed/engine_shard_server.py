@@ -197,6 +197,10 @@ class EngineShardKVService:
         # has no fence (ROADMAP queue C).
         self._lease_until: Optional[float] = None
         self._standby = None
+        # gid -> CLOCK_MONOTONIC time of its last export (pull_group):
+        # the departing owner keeps that sealed state as a standby copy
+        # when it drops the group (_keep_final_copy).
+        self._sealed_at: dict = {}
         self._ship_futs: dict = {}  # proc -> in-flight ship Future
         self._ship_ends: dict = {}
         self._fleet_addrs = dict(fleet_addrs or {})
@@ -426,6 +430,7 @@ class EngineShardKVService:
                     return (ERR_WRONG_GROUP,)
                 blob = self.skv.export_group(gid)
                 if blob is not None:
+                    self._sealed_at[gid] = time.monotonic()
                     return (SK_OK, blob)
                 yield 0.01  # mid-migration / config in flight: settle
             return (ERR_NOT_READY,)
@@ -448,6 +453,7 @@ class EngineShardKVService:
             self.skv.unseal_group(gid, force)
         except RuntimeError:
             return ("ErrDispatched",)
+        self._sealed_at.pop(gid, None)
         return (SK_OK,)
 
     def adopt_group(self, args):
@@ -482,6 +488,7 @@ class EngineShardKVService:
                 if gid not in self.skv.reps:
                     return (SK_OK,)
                 if self.skv.group_quiesced(gid):
+                    self._keep_final_copy(gid)
                     self.skv.drop_gid(gid)
                     if self._plane is not None:
                         # Its capture state goes too, as the in-process
@@ -497,6 +504,21 @@ class EngineShardKVService:
             return (ERR_TIMEOUT,)
 
         return run()
+
+    def _keep_final_copy(self, gid: int) -> None:
+        """Before a moved group's slot is freed here, keep its sealed
+        state in the local standby store under this stay's token and
+        tail seq, stamped with the time it was sealed.  Every shipment
+        of a write the new owner acknowledges is stamped later, so the
+        failover's freshest pick prefers those; until the new owner's
+        first shipment lands anywhere, this copy is the freshest."""
+        at = self._sealed_at.pop(gid, None)
+        if at is None or self._plane is None or self._standby is None:
+            return
+        blob = self.skv.export_group(gid)  # sealed: the frozen state
+        if blob is not None:
+            self._standby.keep(gid, blob, self._plane._token(gid),
+                               self._plane._tail_seq.get(gid, 0), at)
 
     # -- state-plane RPCs (distributed/stateplane.py) ---------------------
 

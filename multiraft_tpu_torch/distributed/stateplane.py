@@ -739,6 +739,23 @@ class StandbyStore:
         st["ts"] = float(msg["ts"])
         return {"ok": True, "have": st["tail_seq"], "gid": gid}
 
+    def keep(self, gid: int, snap: Dict[str, Any], token: str, seq: int,
+             ts: float) -> None:
+        """Hold a departing owner's own final copy of ``gid``: its
+        sealed export, taken at ``ts``, as if shipped here under
+        ``token`` at tail ``seq`` — unless a shipment at least as recent
+        already holds the group.  A group that moved to a process that
+        was its standby has no other copy until its new owner's first
+        shipment lands, so this copy keeps the writes the old owner
+        acknowledged (the reference keeps none; ROADMAP queue C)."""
+        st = self._state.get(gid)
+        if st is not None and st["ts"] >= ts:
+            return
+        self._state[gid] = {
+            "token": token, "snap": snap, "snap_seq": int(seq),
+            "tail": [], "tail_seq": int(seq), "ts": float(ts),
+        }
+
     def freshness(self, gid: int) -> Optional[Dict[str, Any]]:
         st = self._state.get(gid)
         if st is None:

@@ -7,7 +7,7 @@ final ring and every dict ``latency_histogram`` and
 ``verify_sampled_groups`` return must be equal, and the reference's
 negative cases (commit regression, commit past ingest, ring divergence)
 must raise in the port as they do in the reference.  The smoke's
-faulted, traced run (``chip_smoke.traced_run`` with its
+faulted, traced run (``multiraft_tpu_torch.bench.traced_run`` with its
 ``apply_leader_kills``) is held against the same script driven through
 ``bench.py``'s ``apply_leader_kills`` on the reference engine.
 """
@@ -19,11 +19,11 @@ import pytest
 import torch
 
 import bench
-import chip_smoke
 import multiraft_tpu.engine.bench_verify as ref_bv
 import multiraft_tpu.engine.core as ref_core
 import multiraft_tpu_torch.engine.bench_verify as bv
 import multiraft_tpu_torch.engine.core as core
+from multiraft_tpu_torch import bench as port_bench
 from multiraft_tpu.porcupine.model import CheckResult as RefCheckResult
 from multiraft_tpu_torch.porcupine.model import CheckResult
 from multiraft_tpu_torch.utils import prng
@@ -206,7 +206,7 @@ def ref_faulted_run(cfg, chunk, n_chunks, n_fault, n_sample, seed):
     )
     seed_last = np.asarray(jnp.max(state.base + state.log_len, axis=1)).astype(np.int64)
     seed_commit = np.asarray(jnp.max(state.commit, axis=1)).astype(np.int64)
-    sample, kill_gs = chip_smoke.bench_victims(cfg.G, n_fault, n_sample)
+    sample, kill_gs = port_bench.bench_victims(cfg.G, n_fault, n_sample)
     prev = bench._NO_KILLS
     chunks = []
     for c in range(n_chunks):
@@ -222,7 +222,7 @@ def ref_faulted_run(cfg, chunk, n_chunks, n_fault, n_sample, seed):
 
 def test_faulted_traced_run_matches_bench():
     cfg = core.EngineConfig(use_kernels=True, **SHAPE)
-    port = chip_smoke.traced_run(cfg, "cpu", **FAULTED)
+    port = port_bench.traced_run(cfg, "cpu", **FAULTED)
     ref = ref_faulted_run(ref_core.EngineConfig(**SHAPE), **FAULTED)
     assert port["sample"] == ref["sample"]
     assert port["n_kills"] > 0
@@ -232,7 +232,7 @@ def test_faulted_traced_run_matches_bench():
             np.asarray(getattr(ref["state"], k)), getattr(port["state"], k).numpy(),
             err_msg=k,
         )
-    got = chip_smoke.verify_run(port, cfg)
+    got = port_bench.verify_run(port, cfg)
     recs = ref_bv.concat_records(ref["chunks"])
     prep = ref_bv.prepare_records(recs, ref["seed_last"], ref["seed_commit"])
     assert got["lat"] == ref_bv.latency_histogram(
@@ -248,9 +248,9 @@ def test_faulted_traced_run_matches_bench():
 
 
 def test_bench_victims_match_bench():
-    """The smoke's sample and kill set are ``bench.py``'s formulas."""
+    """The port's sample and kill set are ``bench.py``'s formulas."""
     for G, n_fault, n_sample in ((10_000, 48, 128), (64, 8, 16), (16, 6, 8)):
-        sample, kills = chip_smoke.bench_victims(G, n_fault, n_sample)
+        sample, kills = port_bench.bench_victims(G, n_fault, n_sample)
         assert sample == [int(g) for g in sorted(set(np.linspace(0, G - 1, n_sample, dtype=int)))]
         assert kills.dtype == np.int64 and len(set(kills.tolist())) == len(kills)
         assert len(set(kills.tolist()) & set(sample)) == min(n_fault // 2, len(sample))

@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import _full_ring_stalls, _pick_replicas
+from chip_smoke import _pick_replicas
+from multiraft_tpu_torch.bench import full_ring_stalls
 from multiraft_tpu.engine.core import EngineConfig as JaxConfig
 from multiraft_tpu.engine.host import EngineDriver as JaxDriver
 from multiraft_tpu.engine.invariants import InvariantMonitor as JaxMonitor
@@ -280,7 +281,7 @@ def test_full_ring_stall_in_lockstep():
     script (1% drops, crashes and cuts at tick 50, restarts and heals at
     tick 100) at a tight margin, L - 2 - E = 26 ring slots with INGEST=8:
     the reference reaches the stall, the port reaches it on the same tick
-    with every plane equal, ``_full_ring_stalls`` flags the same groups
+    with every plane equal, ``bench.full_ring_stalls`` flags the same groups
     in both, a flagged group's commit never moves again, and every other
     group commits after the heal, the smoke's check."""
     shape = dict(G=16, P=3, L=32, E=4, INGEST=8)
@@ -315,8 +316,8 @@ def test_full_ring_stall_in_lockstep():
             d.step()
         assert_same_world(ref, port, t)
         st = ref.np_state()
-        flagged = _full_ring_stalls(st, ref.cfg)
-        assert np.array_equal(flagged, _full_ring_stalls(port.np_state(), port.cfg)), t
+        flagged = full_ring_stalls(st, ref.cfg)
+        assert np.array_equal(flagged, full_ring_stalls(port.np_state(), port.cfg)), t
         commit = st["commit"].max(axis=1)
         for g in np.nonzero(flagged)[0].tolist():
             frozen.setdefault(g, int(commit[g]))

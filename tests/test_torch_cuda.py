@@ -328,7 +328,8 @@ def test_conformance_scenario_on_the_card_equals_the_cpu(card):
 def test_bench_verify_on_the_card_equals_the_cpu(card):
     """The smoke's traced, faulted script at G=64 on the card and on the
     CPU: equal records and equal ``bench_verify`` results."""
-    from chip_smoke import HEADLINE, traced_run, verify_run
+    from chip_smoke import HEADLINE
+    from multiraft_tpu_torch.bench import traced_run, verify_run
 
     cfg = EngineConfig(use_kernels=True, **dict(HEADLINE, G=64))
     kernels.reset_launches()
@@ -340,3 +341,25 @@ def test_bench_verify_on_the_card_equals_the_cpu(card):
     assert got[0]["lat"] == got[1]["lat"] and got[0]["porc"] == got[1]["porc"]
     assert got[0]["porc"]["porcupine"] == "ok" and got[0]["lat"]["unaccounted"] == 0
     assert got[0]["lat"]["churned_groups"] > 0
+
+
+def test_config5_on_the_card_equals_the_cpu(card):
+    """``bench.run_config5`` at G=200 x P=5 with the kernels on the card
+    and on the CPU: the same integers, revived ex-leaders and final
+    planes, and each kernel launched once a tick on the card."""
+    from multiraft_tpu_torch.bench import run_config5
+
+    shape = dict(G=200, P=5, chunk=60, rounds=4)
+    details = [{}, {}]
+    kernels.reset_launches()
+    on_card = run_config5(True, "cuda", detail=details[0], **shape)
+    assert kernels.LAUNCHES == {k: details[0]["ticks"] for k in kernels.LAUNCHES}
+    on_cpu = run_config5(True, "cpu", detail=details[1], **shape)
+    for k, v in on_cpu.items():
+        if isinstance(v, int):
+            assert on_card[k] == v, k
+    assert details[0]["revived_hot"] == details[1]["revived_hot"]
+    assert details[0]["peak_bytes"] > 0 and details[1]["peak_bytes"] is None
+    card_st, cpu_st = (d["state"]._asdict() for d in details)
+    for k, v in cpu_st.items():
+        assert torch.equal(card_st[k].cpu(), v), k

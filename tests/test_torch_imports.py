@@ -97,7 +97,8 @@ def test_whole_package_imports_with_jax_unimportable():
         "          'analysis.postmortem', 'engine.mesh', 'analysis.core',\n"
         "          'analysis.dataflow', 'analysis.lockgraph', 'analysis.planes',\n"
         "          'analysis.registry', 'analysis.rules', 'analysis.__main__',\n"
-        "          'soak', 'utils.knobs'):\n"
+        "          'soak', 'utils.knobs', 'bench', 'benchmarks.roofline',\n"
+        "          'benchmarks.scenarios'):\n"
         "    assert 'multiraft_tpu_torch.' + n in names, n\n"
         "print(len(names))\n"
     )
@@ -108,6 +109,17 @@ def test_whole_package_imports_with_jax_unimportable():
     )
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 12
+
+
+def test_bench_has_no_platform_pin():
+    """``bench.py`` pins JAX's platform (``jax.config.update``) for
+    ``MULTIRAFT_BENCH_PLATFORM``; the port's bench reads the same knob as
+    a device and pins nothing."""
+    for rel in ("bench.py", "benchmarks/roofline.py", "benchmarks/scenarios.py"):
+        text = (PORT / rel).read_text()
+        assert "jax" not in text.lower(), rel
+    assert "jax.config.update" in (REPO / "bench.py").read_text()
+    assert "MULTIRAFT_BENCH_PLATFORM" in (PORT / "bench.py").read_text()
 
 
 def test_driver_without_device_wants_the_card(monkeypatch):

@@ -537,6 +537,99 @@ class TestStatePlaneUnit:
 # ---------------------------------------------------------------------------
 
 
+class _MovingHost(FakeSkv):
+    """A fleet server's engine side as ``pull_group``/``drop_group``
+    use it: one hosted group that seals on export."""
+
+    def __init__(self, gid, blob):
+        super().__init__(gids=(gid,))
+        self.reps = {gid: blob}
+
+    def export_group(self, gid):
+        return dict(self.reps[gid]) if gid in self.reps else None
+
+    def group_quiesced(self, gid):
+        return True
+
+    def drop_gid(self, gid):
+        self.reps.pop(gid)
+        self.gids.remove(gid)
+
+    def unseal_group(self, gid, force=False):
+        pass
+
+
+class TestDepartingOwnerKeepsItsCopy:
+    """Deviation from the reference (ROADMAP queue C): a fleet server
+    that drops a group it sealed for a move keeps that sealed state in
+    its own standby store, so a group that moved onto its own standby
+    is not lost with the destination before the destination's first
+    shipment lands; the new owner's shipments, stamped later, win."""
+
+    def _run(self, gen):
+        while True:
+            try:
+                next(gen)
+            except StopIteration as stop:
+                return stop.value
+
+    def _server(self):
+        from multiraft_tpu_torch.distributed.engine_shard_server import (
+            EngineShardKVService,
+        )
+
+        blob = {"gid": 7, "cur": None, "prev": None, "shards": {0: ("S", {"k": "v"}, {})}}
+        host = _MovingHost(7, blob)
+        plane = StatePlane(host, me=0, n_procs=2, send=lambda sb, p: None)
+        for cmd in (1, 2, 3):
+            plane.note_write(7, _op(cmd=cmd))
+        svc = types.SimpleNamespace(
+            skv=host, _plane=plane, _standby=StandbyStore(), _sealed_at={},
+            m=FakeObs().metrics, sched=types.SimpleNamespace(now=0.0),
+            DEADLINE_S=5.0, _rebuild_peers=lambda: None,
+        )
+        svc._keep_final_copy = types.MethodType(
+            EngineShardKVService._keep_final_copy, svc)
+        call = lambda name, args: getattr(EngineShardKVService, name)(svc, args)
+        return call, svc, plane, blob
+
+    def test_drop_after_a_pull_keeps_the_sealed_state(self):
+        call, svc, plane, blob = self._server()
+        token = plane._token(7)
+        t0 = time.monotonic()
+        assert self._run(call("pull_group", (7,))) == ("OK", blob)
+        assert self._run(call("drop_group", (7,))) == ("OK",)
+        f = svc._standby.freshness(7)
+        assert (f["token"], f["tail_seq"], f["snap_seq"]) == (token, 3, 3)
+        assert t0 <= f["ts"] <= time.monotonic() and f["has_snap"]
+        assert svc._standby.get(7) == (blob, [])
+        assert not svc._sealed_at and 7 not in plane._tail_seq
+
+    def test_an_aborted_move_keeps_nothing(self):
+        call, svc, plane, _ = self._server()
+        self._run(call("pull_group", (7,)))
+        assert call("unseal_group", (7, True)) == ("OK",)
+        self._run(call("drop_group", (7,)))
+        assert svc._standby.freshness(7) is None
+
+    def test_the_new_owners_shipments_outrank_the_kept_copy(self):
+        store = StandbyStore()
+        store.keep(7, {"gid": 7}, "0.a", 3, ts=10.0)
+        store.keep(7, {"gid": 7, "old": True}, "2.c", 9, ts=4.0)  # older: ignored
+        assert store.freshness(7)["token"] == "0.a"
+        stale = {"token": "2.c", "snap_seq": 9, "tail_seq": 9, "ts": 4.0,
+                 "has_snap": True}
+        assert pick_freshest([(0, store.freshness(7)), (2, stale)]) == [0, 2]
+        newer = {"token": "1.b", "snap_seq": 0, "tail_seq": 1, "ts": 11.0,
+                 "has_snap": True}
+        assert pick_freshest([(0, store.freshness(7)), (2, newer)])[0] == 2
+        # The new owner becoming this process's shipper replaces it.
+        msg = {"gid": 7, "token": "1.b", "kind": "snap", "snap_seq": 0,
+               "snap": {"gid": 7}, "records": [], "ts": 11.0}
+        assert store.receive(frame_blob(codec.encode(msg)))["ok"]
+        assert store.freshness(7)["token"] == "1.b"
+
+
 class TestUnsealAfterDispatch:
     def test_unseal_after_export_raises_without_force(self):
         from multiraft_tpu_torch.harness.fleet import InProcessFleet
