@@ -209,12 +209,46 @@ and prints no result line):
    draw at 100,000 x 5 against the CPU's, and the tick's roofline bound
    (``benchmarks/roofline.py``) beside the measured tick and 9(a)'s.
 
+14. The served-path rigs (``multiraft_tpu_torch/benchmarks`` and
+   ``multiraft_tpu_torch/scripts``), each sub-phase with the launch
+   counters reset just before it and read just after (the servers, the
+   split drivers and the fleet build their engines without the kernels,
+   as the reference's serve, so each count stays 0):
+   (a) ``bench_firehose_sockets`` against ``serve-kv --groups 10000`` at
+   phase 7's serve widths (3 clients x 12 frames of 12,288 rows, two
+   verifier clerks): every row acknowledged, porcupine ok, the wire fast
+   path engaged; ``bench_firehose_inprocess`` at the reference's defaults
+   on the card (one run, not ``main``'s median of 3) and the socket over
+   in-process ratio;
+   (b) ``openloop.sweep`` at G=10,000, the same widths, Poisson, seed 7,
+   keyspace 512, the reference's ladder of 250-8,000 ops/s in steps of
+   2 s (cut from 4), a 50 ms p99 target, the porcupine sampler
+   throughout (ok required): max sustainable rate, the knee and the
+   stages there; the report (``build/smoke/loadcurve.json``) gated by
+   ``python -m multiraft_tpu_torch.scripts.bench_compare --family
+   loadcurve`` against itself as the only round (exit 0, its table);
+   (c) ``serving_throughput.bench`` per-op and framed (16 clerks x 50
+   ops, frame 64, G=64) and ``serving_breakdown`` at its defaults;
+   (d) ``split_bench`` at G=8: the slab exchange's overhead on one card
+   (100 ticks, cut from 400), split serving per-op and framed (100 ops,
+   cut from 400), the failover window, every acknowledged append read
+   back;
+   (e) ``transport_echo``'s sim, native, two-process and C-floor lines
+   and the gap (host only);
+   (f) ``placement_scenario --durable --quick``: exit 0, no
+   acknowledged write lost, the failover inside 60 s.
+   Phase 14 runs mostly in spawned processes, each with its own launch
+   counters: 14(b) beside phases 11 and 12, 14(a) and (c) in one process
+   and 14(d) and (f) in another beside phase 12; phase 13 runs after
+   them all, alone on the card, and 14(e) last, alone.
+
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --only 10a 10b 10c 11a 11b 11c 12a 12b 13`` runs the
-named sub-phases alone (phase 10's with the controller's time in each
-transport and map verb) and prints no contract lines.
+``python3 chip_smoke.py --only 10a 10b 10c 11a 11b 11c 12a 12b 13 14a 14b 14c
+14d 14e 14f`` runs the named sub-phases alone (phase 10's with the
+controller's time in each transport and map verb; 14(e) in this process)
+and prints no contract lines.
 """
 
 from __future__ import annotations
@@ -3648,25 +3682,40 @@ def phase_placed(card: str, kernels, beside: Beside) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# The side process: 9(b) and 10(c) beside phase 8
+# The side processes: 9(b) and 10(c) beside phase 8; phase 14 beside
+# phases 11 and 12
 # ---------------------------------------------------------------------------
 
 # Sub-phases that hold the card's engine against the CPU's in this
 # process, with nothing timed that PERF.md compares across runs; they run
 # in a spawned process while phase 8 waits on its servers.
-BESIDE = (("9b", conformance_on_card), ("10c", inproc_card_vs_cpu))
+BESIDE = ("9b", "10c")
+# Phase 14 runs mostly in three spawned processes: the open-loop ladder
+# (its G=10,000 server is swamped from the first rung, and its scrapes
+# wait out their timeouts: PERF.md section 6) from the start of phase 11,
+# the other sub-phases on the card in two processes while phase 12 waits
+# on its children.  The host-only transport echo runs last, alone: beside
+# another phase it measures that phase's load and slows it.
+BESIDE_MESH = ("14b",)
+BESIDE_TOUR = (("14a", "14c"), ("14d", "14f"))
 
 
-def _beside_main(conn, card: str) -> None:
-    """The side process: each sub-phase of ``BESIDE`` in turn, with the
+def _beside_main(conn, card: str, names, where: str) -> None:
+    """A side process: each sub-phase of ``names`` in turn, with the
     launch counts set to 0 just before it and read just after; sends
     ``(name, error or None, result, log lines)`` after each."""
     global _LOG_BUFFER
+    import functools
+    import signal
     import traceback
 
     import torch
 
-    torch.set_num_threads(2)  # the servers of phase 8 keep the other cores
+    # A stop from the main process (``Beside.close``) unwinds the running
+    # sub-phase, so each rig's ``finally`` shuts down its server children.
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(1))
+
+    torch.set_num_threads(2)  # the servers of the phase beside keep the other cores
     from multiraft_tpu_torch.engine import kernels
 
     # Phase 8 reads the card memory its servers add: this process's
@@ -3675,16 +3724,19 @@ def _beside_main(conn, card: str) -> None:
     torch.cuda.synchronize()
     conn.send(("ready", None, None, []))
 
-    for name, fn in BESIDE:
+    note = f", in the side process beside {where}"
+    fns = {"9b": lambda: conformance_on_card(card, kernels),
+           "10c": lambda: inproc_card_vs_cpu(card),
+           **{n: functools.partial(RIGS_PHASES[n], card) for n in RIGS_PHASES}}
+    for name in names:
         _LOG_BUFFER = []
         kernels.reset_launches()
         t0 = time.perf_counter()
         try:
-            res = fn(card, kernels) if name == "9b" else fn(card)
+            res = fns[name]()
             res["phase_s"] = time.perf_counter() - t0
             res["launches"] = dict(kernels.LAUNCHES)
-            log(f"{name}: launches {res['launches']}, {res['phase_s']:.2f} s, in the "
-                f"side process beside phase 8 [{card}]")
+            log(f"{name}: launches {res['launches']}, {res['phase_s']:.2f} s{note} [{card}]")
             if max(kernels.LAUNCHES.values()) > 0:
                 raise AssertionError(f"{name}: launches {kernels.LAUNCHES}")
         except BaseException:
@@ -3696,17 +3748,19 @@ def _beside_main(conn, card: str) -> None:
 
 
 class Beside:
-    """The side process (spawned, so it makes its own CUDA context):
-    started before phase 8 (the constructor returns once the process
-    holds its context), read by phases 9 and 10, stopped in every case
-    by :meth:`close`."""
+    """A side process (spawned, so it makes its own CUDA context) that
+    runs the sub-phases ``names`` beside the phase ``where``: the
+    constructor returns once the process holds its context, the main
+    process reads each result, and :meth:`close` stops it in every case."""
 
-    def __init__(self, card: str) -> None:
+    def __init__(self, card: str, names=BESIDE, where: str = "phase 8") -> None:
         import multiprocessing
 
+        self.names = tuple(names)
         ctx = multiprocessing.get_context("spawn")
         self._conn, child = ctx.Pipe(duplex=False)
-        self._proc = ctx.Process(target=_beside_main, args=(child, card), name="smoke-beside")
+        self._proc = ctx.Process(target=_beside_main, args=(child, card, self.names, where),
+                                 name="smoke-beside")
         self._proc.start()
         child.close()
         self._got: dict = {}
@@ -3733,7 +3787,8 @@ class Beside:
         """Wait until every sub-phase has sent its result (or one has
         failed); the seconds waited."""
         t0 = time.perf_counter()
-        while len(self._got) < len(BESIDE) and not any(e for e, _, _ in self._got.values()):
+        while len(self._got) < len(self.names) and not any(
+                e for e, _, _ in self._got.values()):
             if self._conn.poll(1.0):
                 got, err, res, lines = self._recv()
                 self._got[got] = (err, res, lines)
@@ -3756,8 +3811,11 @@ class Beside:
         return res
 
     def close(self) -> None:
-        sent = len(self._got) == len(BESIDE) or any(e for e, _, _ in self._got.values())
+        sent = len(self._got) == len(self.names) or any(e for e, _, _ in self._got.values())
         self._proc.join(timeout=30 if sent else 0)
+        if self._proc.is_alive():
+            self._proc.terminate()  # unwinds the sub-phase: its servers stop
+            self._proc.join(timeout=60)
         if self._proc.is_alive():
             self._proc.kill()
             self._proc.join()
@@ -4524,6 +4582,257 @@ def config5_on_card(card: str, kernels, headline_tick_ms=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the served-path rigs (benchmarks/ and scripts/ of the port)
+# ---------------------------------------------------------------------------
+
+# The open-loop ladder's step, cut from the reference's 4 s (PERF.md
+# section 4); the rest of the sweep is the reference's: DEFAULT_RATES,
+# Poisson, seed 7, keyspace 512, a 50 ms p99 target.
+OPENLOOP_STEP_S = 2.0
+# ``split_bench``'s slab ticks and serving ops, cut from its 400 and 400
+# (PERF.md section 4): a split tick costs 16-85 ms on the card and the
+# split servers answer a serial clerk at 3-7 ops/s.
+SPLIT_SLAB_TICKS = 100
+SPLIT_SERVING_OPS = 100
+# ``bench_firehose_sockets``'s defaults: clients, frames a client, rows a frame.
+SOCKETS = dict(n_clients=3, frames_per_client=12, frame=12288)
+
+
+class _Env:
+    """Set environment variables for a block and restore them after."""
+
+    def __init__(self, **env) -> None:
+        self.env = env
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def rigs_firehose(card: str) -> dict:
+    """14(a): ``bench_firehose_sockets`` against ``serve-kv --groups
+    10000`` at phase 7's serve widths (the rig sets the same
+    ``MULTIRAFT_SERVE_*`` variables from its ``ingest``), its verifier
+    clerks porcupine-checked; every row acknowledged and the wire fast
+    path engaged; then ``bench_firehose_inprocess`` at the reference's
+    defaults on the card (once) and the socket-over-in-process ratio."""
+    from multiraft_tpu_torch.benchmarks import serving_throughput as st
+
+    G, ingest = HEADLINE["G"], HEADLINE["INGEST"]
+    t0 = time.perf_counter()
+    socks = st.bench_firehose_sockets(**SOCKETS, G=G, ingest=ingest, verify=True,
+                                      device="cuda")
+    socks["call_s"] = time.perf_counter() - t0
+    total = SOCKETS["n_clients"] * SOCKETS["frames_per_client"] * SOCKETS["frame"]
+    wire = socks["wire"]
+    log(f"14a: firehose over sockets at G={G}, INGEST={ingest}: "
+        f"{socks['ops_ok']:,} of {total:,} rows acknowledged in {socks['wall_s']} s, "
+        f"{socks['ops_per_sec']:,} rows/s; porcupine {socks['porcupine']} over "
+        f"{socks['verifier_ops']} verifier ops; flushes {wire.get('rpc_flushes')}, "
+        f"frames a flush {wire.get('frames_per_flush_mean')} (p99 "
+        f"{wire.get('frames_per_flush_p99')}), out-of-band buffers "
+        f"{wire.get('rpc_oob_buffers')}; {socks['call_s']:.2f} s with the server's "
+        f"start [{card}]")
+    if socks["ops_ok"] != total:
+        raise AssertionError(f"14a: {socks['ops_ok']} of {total} rows acknowledged")
+    if socks["porcupine"] != "ok":
+        raise AssertionError(f"14a: porcupine {socks['porcupine']}")
+    if not (wire.get("rpc_flushes", 0) > 0 and (wire.get("frames_per_flush_mean") or 0) >= 1.0
+            and wire.get("rpc_oob_buffers", 0) > 0):
+        raise AssertionError(f"14a: the wire fast path did not engage: {wire}")
+    # One run, where ``serving_throughput``'s ``main`` takes the median
+    # of 3 (PERF.md section 4).
+    inproc = st.bench_firehose_inprocess(device="cuda")
+    if inproc["ops_ok"] != inproc["ops"]:
+        raise AssertionError(f"14a in process: {inproc['ops_ok']} of {inproc['ops']} rows OK")
+    ratio = socks["ops_per_sec"] / inproc["ops_per_sec"]
+    log(f"14a: firehose in process at G={inproc['G']}, INGEST={inproc['ingest']}, "
+        f"{inproc['clerks']} clerks x {inproc['ops'] // (inproc['clerks'] * inproc['frame'])} "
+        f"frames of {inproc['frame']}: "
+        f"{inproc['ops_per_sec']:,} rows/s (1 run), frame latency "
+        f"{inproc['frame_latency_ms']} ms; sockets_over_inprocess {ratio:.3f} [{card}]")
+    return {"sockets": socks, "inprocess": inproc, "sockets_over_inprocess": ratio}
+
+
+def rigs_openloop(card: str) -> dict:
+    """14(b): the open-loop ladder against ``serve-kv --groups 10000`` at
+    phase 7's serve widths, the porcupine sampler throughout; the report
+    recorded as the port's first round in a fresh directory and gated by
+    ``python -m multiraft_tpu_torch.scripts.bench_compare --family
+    loadcurve`` against that round alone (no TPU round)."""
+    import shutil
+
+    from multiraft_tpu_torch.benchmarks import openloop
+
+    G = HEADLINE["G"]
+    with _Env(**SERVE_ENV):
+        rep = openloop.sweep(rates=openloop.DEFAULT_RATES, step_s=OPENLOOP_STEP_S,
+                             mode="poisson", seed=7, groups=G, keyspace=512,
+                             p99_target_ms=50.0, verify=True, device="cuda")
+    if rep["porcupine"] != "ok":
+        raise AssertionError(f"14b: porcupine {rep['porcupine']} "
+                             f"({rep['verifier_ops']} sampled ops)")
+    os.makedirs(SCRATCH, exist_ok=True)
+    path = os.path.join(SCRATCH, "loadcurve.json")
+    with open(path, "w") as f:
+        json.dump(rep, f, indent=1)
+    knee = rep.get("knee") or {}
+    for s in rep["steps"]:
+        log(f"14b: offered {s['offered_rate']:g} ops/s: sent {s['sent']}, ok {s['ok']}, "
+            f"shed {s['shed']}, drops {s['drops']}, achieved {s['achieved_ops_per_sec']} "
+            f"ops/s, client p50/p99 {s['client_p50_ms']}/{s['client_p99_ms']} ms [{card}]")
+    at_knee = rep["steps"][knee["index"]] if knee else {}
+    stages = {k: (v.get("p50_ms"), v.get("p99_ms"))
+              for k, v in (at_knee.get("stages") or {}).items()}
+    log(f"14b: max sustainable {rep['max_sustainable_ops_per_sec']} ops/s at p99 <= "
+        f"{rep['p99_target_ms']:g} ms; knee at {knee.get('offered_rate')} offered "
+        f"(index {knee.get('index')} of {len(rep['steps'])}), p99 there "
+        f"{knee.get('client_p99_ms')} ms; stage p50/p99 ms at the knee {stages}; "
+        f"porcupine {rep['porcupine']} over {rep['verifier_ops']} sampled ops [{card}]")
+    rounds = os.path.join(SCRATCH, "rounds")
+    shutil.rmtree(rounds, ignore_errors=True)
+    os.makedirs(rounds)
+    shutil.copy(path, os.path.join(rounds, "LOADCURVE_r01.json"))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run(
+        [sys.executable, "-m", "multiraft_tpu_torch.scripts.bench_compare", path,
+         "--family", "loadcurve", "--history", os.path.join(rounds, "LOADCURVE_r*.json")],
+        capture_output=True, text=True, cwd=ROOT, env=env, timeout=120)
+    for line in r.stdout.splitlines():
+        log(f"14b: bench_compare | {line}")
+    if r.returncode != 0 or "max sustainable ops/s" not in r.stdout:
+        raise AssertionError(f"14b: bench_compare exit {r.returncode}: {r.stderr}")
+    return {k: rep.get(k) for k in (
+        "max_sustainable_ops_per_sec", "knee_ops_per_sec", "p99_at_knee_ms",
+        "p999_at_knee_ms", "tail_dominant_wait", "porcupine", "verifier_ops", "step_s",
+    )} | {"knee_stages": stages,
+          "steps": [{k: s.get(k) for k in ("offered_rate", "sent", "ok", "shed", "drops",
+                                            "achieved_ops_per_sec", "client_p50_ms",
+                                            "client_p99_ms")} for s in rep["steps"]]}
+
+
+def rigs_clerks(card: str) -> dict:
+    """14(c): ``serving_throughput.bench`` per-op and framed (16 clerks x
+    50 ops, frame 64; ``serve-kv --groups 64`` at the default serve
+    widths, a server each) and ``serving_breakdown`` at its defaults (40
+    frames of 64, the service's engine on the card)."""
+    from multiraft_tpu_torch.benchmarks import serving_breakdown as sb
+    from multiraft_tpu_torch.benchmarks import serving_throughput as st
+
+    out = {}
+    for frame in (0, 64):
+        r = st.bench(16, 50, frame=frame, device="cuda")
+        if r["ops"] != 16 * 50:
+            raise AssertionError(f"14c: {r}")
+        out[f"frame{frame}"] = r
+        log(f"14c: {r['clerks']} clerks x 50 ops, frame {frame}: {r['ops_per_sec']} ops/s, "
+            f"mean latency {r['mean_latency_ms']} ms ({'a frame' if frame else 'an op'}), "
+            f"wire {r['wire']} [{card}]")
+    br = {"frame": 64, **sb.bench_codec(64), **sb.bench_service(64, 40, device="cuda")}
+    out["breakdown"] = br
+    log(f"14c: breakdown of a 64-op frame: codec request {br['codec_req_frame_ms']} ms, "
+        f"reply {br['codec_rep_frame_ms']} ms ({br['codec_us_per_op']} us an op); service "
+        f"{br['service_ops_per_sec']} ops/s, {br['service_ms_per_frame']} ms a frame over "
+        f"{br['service_frames']} frames [{card}]")
+    return out
+
+
+def rigs_split(card: str) -> dict:
+    """14(d): ``split_bench`` at G=8: two split sides on the one card
+    against the whole-card driver over ``SPLIT_SLAB_TICKS`` ticks (the
+    slab exchange's price, not two failure domains), ``serve_split_kv``
+    processes per-op and framed (``SPLIT_SERVING_OPS`` ops), and the
+    failover window with every acknowledged append read back."""
+    from multiraft_tpu_torch.benchmarks import split_bench as sp
+
+    out = {}
+    out.update(sp.bench_slab_overhead(8, ticks=SPLIT_SLAB_TICKS, device="cuda"))
+    out.update(sp.bench_serving(8, SPLIT_SERVING_OPS, device="cuda"))
+    out.update(sp.bench_failover(8, device="cuda"))
+    if out["lost_acked_writes"] != 0:
+        raise AssertionError(f"14d: {out['lost_acked_writes']} acknowledged writes lost")
+    log(f"14d: G=8: whole card {out['whole_chip_ms_per_tick']} ms a tick, split "
+        f"{out['split_ms_per_tick_per_side']} ms a tick a side, slab_overhead_x "
+        f"{out['slab_overhead_x']} (two sides on one card: the slab exchange, not two "
+        f"failure domains); served per-op {out['per_op_ops_per_sec']} ops/s, framed "
+        f"{out['framed_ops_per_sec']} ops/s; failover window {out['failover_window_ms']} "
+        f"ms, then {out['post_failover_ms_per_op']} ms an op; {out['acked_writes']} "
+        f"acknowledged appends read back, 0 lost [{card}]")
+    return out
+
+
+def rigs_transport(card: str) -> dict:
+    """14(e): ``transport_echo``'s four lines and the gap (the floor
+    built from the port's copy of ``loopback_floor.c``); host only."""
+    from multiraft_tpu_torch.benchmarks import transport_echo as te
+
+    out = {}
+    for rec in te.lines("both"):
+        out[rec["path"]] = rec
+        log(f"14e: {json.dumps(rec)} [{card}]")
+    if set(out) != {"sim", "native", "native_2proc", "loopback_floor_c", "gap"}:
+        raise AssertionError(f"14e: lines {sorted(out)}")
+    return out
+
+
+def rigs_placement(card: str) -> dict:
+    """14(f): ``python -m multiraft_tpu_torch.scripts.placement_scenario
+    --durable --quick`` at its defaults (3 processes x 2 gids, the fleet's
+    engines on the card): exit 0, no acknowledged write lost, the
+    failover inside 60 s."""
+    import contextlib
+    import io
+
+    from multiraft_tpu_torch.scripts import placement_scenario as ps
+
+    os.makedirs(SCRATCH, exist_ok=True)
+    path = os.path.join(SCRATCH, "placement.json")
+    printed = io.StringIO()  # the scenario's own lines; the result is read from its file
+    with contextlib.redirect_stdout(printed):
+        rc = ps.main(["--durable", "--quick", "--out", path])
+    with open(path) as f:
+        res = json.load(f)
+    log(f"14f: durable failover {res['durable_failover_s']} s, "
+        f"{res['lost_acked_writes']} of {res['acked_writes']} acknowledged writes lost, "
+        f"ship recoveries {res['ship_recoveries']}, snapshots {res['ship_snapshots']}, "
+        f"tail records {res['ship_tail_records']}, exit {rc} [{card}]")
+    if rc != 0 or res["lost_acked_writes"] != 0 or not res["durable_failover_s"] < 60.0:
+        raise AssertionError(f"14f: exit {rc}: {res}")
+    return {k: v for k, v in res.items() if k not in ("history", "placement")}
+
+
+RIGS_PHASES = {"14a": rigs_firehose, "14b": rigs_openloop, "14c": rigs_clerks,
+               "14d": rigs_split, "14e": rigs_transport, "14f": rigs_placement}
+
+
+def phase_rigs(card: str, kernels, names=tuple(RIGS_PHASES)) -> dict:
+    """Phase 14 in this process (``--only``): each sub-phase with the
+    launch counts set to 0 just before it and read just after.  The
+    servers, the split drivers and the fleet build their engines without
+    the kernels, as the reference's serve, so each count stays 0."""
+    out = {}
+    for name in names:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out[name] = RIGS_PHASES[name](card)
+        out[name]["phase_s"] = time.perf_counter() - t0
+        out[name]["launches"] = dict(kernels.LAUNCHES)
+        log(f"{name}: launches {out[name]['launches']}, {out[name]['phase_s']:.2f} s [{card}]")
+        if max(kernels.LAUNCHES.values()) > 0:
+            raise AssertionError(f"{name}: launches in this process {kernels.LAUNCHES}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4536,8 +4845,9 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--only"]:
         tour = ("12a", "12b")
-        names = sys.argv[2:] or ["10a", "10b", "10c", "11a", "11b", "11c", *tour, "13"]
-        unknown = [n for n in names if n not in MESH_PHASES
+        names = sys.argv[2:] or ["10a", "10b", "10c", "11a", "11b", "11c", *tour, "13",
+                                 *RIGS_PHASES]
+        unknown = [n for n in names if n not in MESH_PHASES and n not in RIGS_PHASES
                    and n not in ("10a", "10b", "10c", "13") + tour]
         if unknown:
             print(f"chip_smoke: unknown sub-phases {unknown}", file=sys.stderr)
@@ -4554,6 +4864,13 @@ def main() -> int:
         if "13" in names:
             phase_build(kernels)
             log(f"config5: {json.dumps(config5_on_card(card, kernels))} [{card}]")
+        rigs_names = [n for n in names if n in RIGS_PHASES]
+        if rigs_names:
+            t0 = time.perf_counter()
+            rigs = phase_rigs(card, kernels, rigs_names)
+            log(f"rigs: {json.dumps(rigs)} [{card}]")
+            log(f"rigs: phase 14 ({' '.join(rigs_names)}) in "
+                f"{time.perf_counter() - t0:.2f} s [{card}]")
         return 0
     t_start = time.perf_counter()
     card = card_line()
@@ -4593,7 +4910,8 @@ def main() -> int:
         shard_served = phase_shard_serve(card, kernels)
         log(f"shard serve: phase 8 in {time.perf_counter() - t0:.2f} s [{card}]")
         # Phases 9 and 10 time the card alone: the side process ends first.
-        log(f"side process: 9b and 10c done {beside.wait():.2f} s after phase 8 [{card}]")
+        log(f"side process: {', '.join(BESIDE)} done {beside.wait():.2f} s after phase 8 "
+            f"[{card}]")
         t0 = time.perf_counter()
         verified = phase_verify(card, kernels, beside)
         log(f"verify: phase 9 in {time.perf_counter() - t0:.2f} s [{card}]")
@@ -4602,15 +4920,32 @@ def main() -> int:
         log(f"placed: phase 10 in {time.perf_counter() - t0:.2f} s [{card}]")
     finally:
         beside.close()
-    t0 = time.perf_counter()
-    meshed = phase_mesh(card, kernels)
-    log(f"mesh: phase 11 in {time.perf_counter() - t0:.2f} s [{card}]")
-    t0 = time.perf_counter()
-    toured = phase_tour(card, kernels)
-    log(f"tour: phase 12 in {time.perf_counter() - t0:.2f} s [{card}]")
+    t_rigs = time.perf_counter()
+    sides = []
+    try:
+        sides.append(Beside(card, BESIDE_MESH, "phases 11 and 12"))
+        t0 = time.perf_counter()
+        meshed = phase_mesh(card, kernels)
+        log(f"mesh: phase 11 in {time.perf_counter() - t0:.2f} s [{card}]")
+        t0 = time.perf_counter()
+        for names in BESIDE_TOUR:
+            sides.append(Beside(card, names, "phase 12"))
+        toured = phase_tour(card, kernels)
+        log(f"tour: phase 12 in {time.perf_counter() - t0:.2f} s [{card}]")
+        for side in sides:
+            log(f"side process: {', '.join(side.names)} done {side.wait():.2f} s later [{card}]")
+        got = {n: side.result(n) for side in sides for n in side.names}
+    finally:
+        for side in sides:
+            side.close()
+    log(f"rigs: phases 11, 12 and 14 in {time.perf_counter() - t_rigs:.2f} s (phase 14 "
+        f"but 14e in side processes beside phases 11 and 12) [{card}]")
+    # Phase 13 times the card alone: it runs after every side process.
     t0 = time.perf_counter()
     c5_run = config5_on_card(card, kernels, verified["9a"]["tick_ms_mean"])
     log(f"config5: phase 13 in {time.perf_counter() - t0:.2f} s [{card}]")
+    got.update(phase_rigs(card, kernels, ["14e"]))
+    rigs = {n: got[n] for n in RIGS_PHASES}
 
     line = []
     for name in ("quorum_commit", "vote_tally"):
@@ -4646,6 +4981,10 @@ def main() -> int:
             # Phase 13: config #5 end to end; the kernel against its
             # plain version on that run's final state.
             "config5_run": c5_run["kernels"][name],
+            # Phase 14: the served-path rigs' servers, split drivers and
+            # fleet build their engines without the kernels, as the
+            # reference's serve; each sub-phase's count in its process.
+            "rigs_launches": {k: v["launches"][name] for k, v in rigs.items()},
         })
     log(f"firehose: {json.dumps(fh)}")
     log(f"operations: {json.dumps(ops)}")
@@ -4657,6 +4996,7 @@ def main() -> int:
     log(f"mesh: {json.dumps(meshed)} [{card}]")
     log(f"tour: {json.dumps(toured)} [{card}]")
     log(f"config5: {json.dumps(c5_run)} [{card}]")
+    log(f"rigs: {json.dumps(rigs)} [{card}]")
     log(f"total: {time.perf_counter() - t_start:.1f} s [{card}]")
     log(json.dumps({"kernels": line}))
     print(json.dumps({

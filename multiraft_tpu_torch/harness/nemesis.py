@@ -2,9 +2,9 @@
 clusters.
 
 PyTorch port of ``multiraft_tpu/harness/nemesis.py``.  The default
-``load_surge`` driver fires this package's own copy of the open-loop
-generator (``_openloop.py``); the reference's reaches
-``benchmarks/openloop.py``.
+``load_surge`` driver fires this package's open-loop generator
+(``multiraft_tpu_torch/benchmarks/openloop.py``), the counterpart of
+the reference's ``benchmarks/openloop.py``.
 
 The sim backend is routinely tested under labrpc-style faults; this
 module brings the same discipline to the deployment path.  A
@@ -284,13 +284,13 @@ def _openloop_surge_fire(
     service: str = "EngineKV",
 ) -> int:
     """Default ``load_surge`` driver: one open-loop burst from this
-    package's copy of the reference's open-loop generator
-    (``_openloop.py``) at the server's ``<service>.command`` RPC
+    package's open-loop generator (``benchmarks/openloop.py``) at the
+    server's ``<service>.command`` RPC
     (``"EngineShardKV"`` for a ``serve-shardkv`` target).  Returns the
     number of requests that got ANY reply (OK, error, or a shed
     ``ErrBusy``) — the window's proof that the burst actually reached
     the server."""
-    from ._openloop import fire_schedule, gen_schedule
+    from ..benchmarks.openloop import fire_schedule, gen_schedule
 
     sched = gen_schedule(seed=seed, rate=rate, duration=dur)
     rep = fire_schedule(host, port, sched, duration=dur, service=service,
@@ -336,7 +336,7 @@ class Nemesis:
         self._kill_replica = kill_replica
         # load_surge burst driver: (host, port, rate, dur, seed) ->
         # replied count.  Injectable so fast tests swap in a fake; the
-        # default fires this package's open-loop copy (_openloop.py).
+        # default fires this package's open-loop generator.
         self._surge_fire = surge_fire or _openloop_surge_fire
         self._surge_threads: Dict[int, threading.Thread] = {}
         self.applied: List[Tuple[str, str, Dict[str, Any]]] = []

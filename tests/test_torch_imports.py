@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: nothing in ``multiraft_tpu_torch/`` or
-in ``chip_smoke.py`` imports JAX, the reference package or the
-benchmarks tree (whose open-loop generator imports the reference), the whole
+in ``chip_smoke.py`` imports JAX, the reference package, the top-level
+benchmarks tree (whose open-loop generator imports the reference) or the
+top-level scripts tree (the reference's ``loadcurve.py`` reaches
+``bench_compare`` there), the whole
 package imports with JAX made unimportable, and an engine driver asked
 for no device in particular wants the card and refuses to run without
 one."""
@@ -40,7 +42,7 @@ def _imported_modules(path: Path):
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "multiraft_tpu", "benchmarks")
+    return top in ("jax", "jaxlib", "multiraft_tpu", "benchmarks", "scripts")
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
@@ -52,6 +54,9 @@ def test_no_jax_or_reference_import(path):
 def test_forbidden_names_are_recognised():
     assert _forbidden("jax.numpy") and _forbidden("multiraft_tpu.engine.core")
     assert not _forbidden("multiraft_tpu_torch.engine.core")
+    assert _forbidden("scripts.bench_compare") and _forbidden("scripts")
+    assert not _forbidden("multiraft_tpu_torch.scripts.bench_compare")
+    assert not _forbidden("multiraft_tpu_torch.benchmarks.openloop")
 
 
 def test_a_benchmarks_import_is_caught(tmp_path):
@@ -69,6 +74,23 @@ def test_a_benchmarks_import_is_caught(tmp_path):
     assert "benchmarks.openloop" in list(_imported_modules(ref))
 
 
+def test_a_scripts_import_is_caught(tmp_path):
+    """The reference's ``scripts/loadcurve.py`` imports ``bench_compare``
+    inside ``main`` as a top-level module from ``scripts/``; a port file
+    importing ``scripts.bench_compare`` (absolute) is caught, and the
+    port's own subpackage is reached relatively."""
+    planted = tmp_path / "planted.py"
+    planted.write_text(
+        "def main():\n    from scripts.bench_compare import main as m\n"
+    )
+    assert [m for m in _imported_modules(planted) if _forbidden(m)] == [
+        "scripts.bench_compare"
+    ]
+    port = PORT / "scripts" / "loadcurve.py"
+    assert not [m for m in _imported_modules(port) if _forbidden(m)]
+    assert "from .bench_compare import" in port.read_text()
+
+
 def test_whole_package_imports_with_jax_unimportable():
     code = (
         "import sys, pkgutil, importlib\n"
@@ -76,6 +98,7 @@ def test_whole_package_imports_with_jax_unimportable():
         "sys.modules['jaxlib'] = None\n"
         "sys.modules['multiraft_tpu'] = None\n"
         "sys.modules['benchmarks'] = None\n"
+        "sys.modules['scripts'] = None\n"
         "import multiraft_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'multiraft_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
@@ -92,13 +115,16 @@ def test_whole_package_imports_with_jax_unimportable():
         "          'services.backend', 'services.kvraft', 'services.shardctrler',\n"
         "          'services.shardkv', 'engine.bench_verify',\n"
         "          'distributed.placement', 'harness.fleet', 'harness.observe',\n"
-        "          'harness.bundle', 'harness.nemesis', 'harness._openloop',\n"
+        "          'harness.bundle', 'harness.nemesis', 'benchmarks.openloop',\n"
         "          'harness.loadcurve', 'harness.split_harness',\n"
         "          'analysis.postmortem', 'engine.mesh', 'analysis.core',\n"
         "          'analysis.dataflow', 'analysis.lockgraph', 'analysis.planes',\n"
         "          'analysis.registry', 'analysis.rules', 'analysis.__main__',\n"
         "          'soak', 'utils.knobs', 'bench', 'benchmarks.roofline',\n"
-        "          'benchmarks.scenarios'):\n"
+        "          'benchmarks.scenarios', 'benchmarks.serving_throughput',\n"
+        "          'benchmarks.serving_breakdown', 'benchmarks.split_bench',\n"
+        "          'benchmarks.transport_echo', 'scripts', 'scripts.bench_compare',\n"
+        "          'scripts.loadcurve', 'scripts.placement_scenario'):\n"
         "    assert 'multiraft_tpu_torch.' + n in names, n\n"
         "print(len(names))\n"
     )
@@ -113,12 +139,19 @@ def test_whole_package_imports_with_jax_unimportable():
 
 def test_bench_has_no_platform_pin():
     """``bench.py`` pins JAX's platform (``jax.config.update``) for
-    ``MULTIRAFT_BENCH_PLATFORM``; the port's bench reads the same knob as
-    a device and pins nothing."""
-    for rel in ("bench.py", "benchmarks/roofline.py", "benchmarks/scenarios.py"):
+    ``MULTIRAFT_BENCH_PLATFORM``, and the serving and split rigs pin it
+    to the CPU; the port's bench reads the same knob as a device, its
+    rigs take ``device``, and none pins anything."""
+    for rel in ("bench.py", "benchmarks/roofline.py", "benchmarks/scenarios.py",
+                "benchmarks/serving_throughput.py",
+                "benchmarks/serving_breakdown.py", "benchmarks/split_bench.py",
+                "benchmarks/openloop.py", "scripts/loadcurve.py",
+                "scripts/placement_scenario.py"):
         text = (PORT / rel).read_text()
         assert "jax" not in text.lower(), rel
-    assert "jax.config.update" in (REPO / "bench.py").read_text()
+    for ref in ("bench.py", "benchmarks/serving_throughput.py",
+                "benchmarks/serving_breakdown.py", "benchmarks/split_bench.py"):
+        assert "jax.config.update" in (REPO / ref).read_text(), ref
     assert "MULTIRAFT_BENCH_PLATFORM" in (PORT / "bench.py").read_text()
 
 

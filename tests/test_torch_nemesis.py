@@ -1,5 +1,5 @@
-"""The port's nemesis harness (``harness/nemesis.py``) and the private
-open-loop burst behind its ``load_surge`` window (``harness/_openloop.py``).
+"""The port's nemesis harness (``harness/nemesis.py``) and the open-loop
+burst behind its ``load_surge`` window (``benchmarks/openloop.py``).
 
 * The reference's unit cases (``tests/test_chaos.py``,
   ``tests/test_placement.py``'s kill verb) on the port: seeded
@@ -262,7 +262,7 @@ def test_make_schedule_equals_the_reference(seed, n_procs, include):
 @pytest.mark.parametrize("seed", [800, 1809])
 def test_open_loop_schedule_equals_the_reference(seed, mode):
     from benchmarks.openloop import gen_schedule as ref_gen
-    from multiraft_tpu_torch.harness._openloop import gen_schedule
+    from multiraft_tpu_torch.benchmarks.openloop import gen_schedule
 
     kw = dict(seed=seed, rate=900.0, duration=1.5, mode=mode)
     ours = gen_schedule(**kw)
