@@ -1,0 +1,9 @@
+"""Device milliseconds a tick in the jitter draw, ``mrt.prng``, from the
+program's CUDA events at the phases' ends, over the device stretch's
+ticks (:func:`cellbench.phases.device_ms_per_tick`)."""
+
+from cellbench import phases
+
+
+def read(out):
+    return phases.device_ms_per_tick(out, "prng")

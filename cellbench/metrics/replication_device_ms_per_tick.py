@@ -1,0 +1,11 @@
+"""Device milliseconds a tick in the replication and commit layer's
+phases (``mrt.append`` less the ``mrt.fast_forward`` inside it,
+``mrt.commit``, ``mrt.ingest``, ``mrt.sends``), from the program's CUDA
+events at the phases' ends, over the device stretch's ticks
+(:func:`cellbench.phases.device_ms_per_tick`)."""
+
+from cellbench import phases
+
+
+def read(out):
+    return phases.device_ms_per_tick(out, "replication")

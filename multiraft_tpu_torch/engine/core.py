@@ -37,7 +37,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 
-from ..utils import prng
+from ..utils import prng, trace
 from ..utils.knobs import knob_bool
 from . import kernels
 
@@ -356,6 +356,21 @@ def tick_impl(
     new_cmds: torch.Tensor,  # i32[G]: Start() firehose, appended at leaders
     key: torch.Tensor,
 ) -> Tuple[EngineState, Mailbox, Dict[str, torch.Tensor]]:
+    """One tick of every group.  While ``torch.profiler`` records, the
+    tick runs inside an ``mrt.tick`` range with one ``mrt.*`` range per
+    phase (``utils.trace.phases``); otherwise it enters none."""
+    with trace.phases(state.term.device, "mrt.tick") as sp:
+        return _tick(cfg, state, inbox, new_cmds, key, sp)
+
+
+def _tick(
+    cfg: EngineConfig,
+    state: EngineState,
+    inbox: Mailbox,
+    new_cmds: torch.Tensor,
+    key: torch.Tensor,
+    sp,  # the tick's phase spans: trace.TickPhases, or a no-op
+) -> Tuple[EngineState, Mailbox, Dict[str, torch.Tensor]]:
     G, P, L, E = cfg.G, cfg.P, cfg.L, cfg.E
     dev = state.term.device
     out: Dict[str, torch.Tensor] = {}
@@ -365,11 +380,13 @@ def tick_impl(
     own = pi[None] == pi[..., None]  # [1,P,P] diag mask
 
     # One jitter draw per tick, shared by every timer reset in it.
+    sp.phase("mrt.prng")
     jitter = prng.randint(
         prng.fold_in(key, 7), (G, P), cfg.ELECT_MIN, cfg.ELECT_MAX, dev
     )
 
     # ---- 1. vote requests: one arbitrated pass over [G, voter, cand] ----
+    sp.phase("mrt.votes")
     arrived = _vT(inbox.vr_active) & state.alive[:, :, None]
     is_pre = _vT(inbox.vr_pre)
     active = arrived & ~is_pre
@@ -419,6 +436,7 @@ def tick_impl(
     out["vp_granted"] = torch.where(pre_act, grant_pre, grant)
 
     # ---- 2. vote replies -> tally -> leadership ----
+    sp.phase("mrt.tally")
     arrived = _vT(inbox.vp_active) & state.alive[:, :, None]
     reply_pre = _vT(inbox.vp_pre)
     active = arrived & ~reply_pre
@@ -526,6 +544,7 @@ def tick_impl(
         )
 
     # ---- 3. append requests: the max-term message per dst wins ----
+    sp.phase("mrt.append")
     act_in = _vT(inbox.ar_active) & state.alive[:, :, None]  # [G,dst,src]
     term_key = torch.where(act_in, _vT(inbox.ar_term), -1)
     max_term_in = term_key.amax(dim=2)
@@ -565,15 +584,16 @@ def tick_impl(
     snap = pick(inbox.ar_snap)
 
     # InstallSnapshot fast-forward.
-    do_snap = ok & snap & (prev > state.commit)
-    state = state._replace(
-        base=torch.where(do_snap, prev, state.base),
-        base_term=torch.where(do_snap, prev_t, state.base_term),
-        log_len=torch.where(do_snap, 0, state.log_len),
-        commit=torch.where(do_snap, prev, state.commit),
-        applied=torch.where(do_snap, prev, state.applied),
-    )
-    snap_handled = ok & snap
+    with sp.span("mrt.fast_forward"):
+        do_snap = ok & snap & (prev > state.commit)
+        state = state._replace(
+            base=torch.where(do_snap, prev, state.base),
+            base_term=torch.where(do_snap, prev_t, state.base_term),
+            log_len=torch.where(do_snap, 0, state.log_len),
+            commit=torch.where(do_snap, prev, state.commit),
+            applied=torch.where(do_snap, prev, state.applied),
+        )
+        snap_handled = ok & snap
 
     last = _last_index(state)
     apn = ok & ~snap
@@ -645,6 +665,7 @@ def tick_impl(
     out["ap_conflict"] = torch.minimum(prev_all, state.commit[..., None] + 1)
 
     # ---- 4. append replies + quorum commit advance ----
+    sp.phase("mrt.commit")
     active = _vT(inbox.ap_active) & state.alive[:, :, None]
     m_term = _vT(inbox.ap_term)
     higher_lane = active & (m_term > state.term[..., None])
@@ -716,6 +737,7 @@ def tick_impl(
 
     # ---- 4b. check-quorum: quorum-severed leaders release their groups ----
     if cfg.check_quorum:
+        sp.phase("mrt.check_quorum")
         eff_ack = torch.where(own, now, state.last_ack)
         if cfg.membership_on:
             q_heard = torch.minimum(
@@ -737,6 +759,7 @@ def tick_impl(
     # ---- 4c. membership: a leader removed by a completed change steps
     # down once the removing entry commits ----
     if cfg.membership_on:
+        sp.phase("mrt.membership")
         self_voter = (((state.voters_old | state.voters_new) >> pi) & 1) == 1
         removed = (
             (state.role == LEADER)
@@ -751,6 +774,7 @@ def tick_impl(
         )
 
     # ---- 5. timers: elections ----
+    sp.phase("mrt.elections")
     timeout = state.alive & (now >= state.elect_dl) & (state.role != LEADER)
     if cfg.membership_on:
         member = (((state.voters_old | state.voters_new) >> pi) & 1) == 1
@@ -788,6 +812,7 @@ def tick_impl(
     # ---- 5a-bis. membership: joint auto-exit (before ingest, so the
     # capacity accounting already includes the exit entry) ----
     if cfg.membership_on:
+        sp.phase("mrt.membership")
         last_idx = _last_index(state)
         can_exit = (
             (state.role == LEADER)
@@ -816,6 +841,7 @@ def tick_impl(
         )
 
     # ---- 5b. Start() ingestion: the max-term alive leader appends ----
+    sp.phase("mrt.ingest")
     is_leader = (state.role == LEADER) & state.alive
     group_max_term = torch.where(state.alive, state.term, -1).amax(
         dim=1, keepdim=True
@@ -835,6 +861,7 @@ def tick_impl(
     start_index = torch.where(accept > 0, last_idx, 0).sum(dim=1, dtype=I32)
 
     # ---- 5c. append sends: heartbeat + lag repair ----
+    sp.phase("mrt.sends")
     last_idx = _last_index(state)
     is_leader = (state.role == LEADER) & state.alive
     hb_fire = is_leader & (now >= state.hb_due)
@@ -882,6 +909,7 @@ def tick_impl(
     )
 
     # ---- 6. apply frontier + ring compaction ----
+    sp.phase("mrt.compact")
     if not cfg.host_paced_compaction:
         state = state._replace(
             applied=torch.maximum(state.applied, state.commit)
@@ -934,14 +962,18 @@ def run_ticks_traced_vec(
     key: torch.Tensor,
 ) -> Tuple[EngineState, Mailbox, Dict[str, torch.Tensor]]:
     """``n_ticks`` rounds with a per-group ingest vector, tick ``i`` keyed
-    by ``fold_in(key, i)``, plus the stacked ``TRACE_KEYS`` record."""
+    by ``fold_in(key, i)``, plus the stacked ``TRACE_KEYS`` record (the
+    stacking is the last tick's ``mrt.record``)."""
     recs = []
     for i in range(n_ticks):
-        state, inbox, m = tick_impl(
-            cfg, state, inbox, new_cmds, prng.fold_in(key, i)
-        )
-        recs.append(_trace_record(m))
-    rec = {k: torch.stack([r[k] for r in recs]) for k in TRACE_KEYS}
+        with trace.phases(state.term.device) as sp:
+            with sp.span("mrt.prng"):
+                tick_key = prng.fold_in(key, i)
+            state, inbox, m = tick_impl(cfg, state, inbox, new_cmds, tick_key)
+            with sp.span("mrt.record"):
+                recs.append(_trace_record(m))
+                if i == n_ticks - 1:
+                    rec = {k: torch.stack([r[k] for r in recs]) for k in TRACE_KEYS}
     return state, inbox, rec
 
 
@@ -973,7 +1005,8 @@ def run_ticks(
         (cfg.G,), ingest_per_tick, dtype=I32, device=state.term.device
     )
     for i in range(n_ticks):
-        state, inbox, _ = tick_impl(
-            cfg, state, inbox, new_cmds, prng.fold_in(key, i)
-        )
+        with trace.phases(state.term.device) as sp:
+            with sp.span("mrt.prng"):
+                tick_key = prng.fold_in(key, i)
+            state, inbox, _ = tick_impl(cfg, state, inbox, new_cmds, tick_key)
     return state, inbox

@@ -375,9 +375,10 @@ class EngineDriver:
         # Called as (g, idx, term) when a payload binds at ingest.
         self.on_payload_bound: Optional[Any] = None
         # Optional utils.trace.Tracer: each tick becomes a wall-clock
-        # span carrying its metrics.  The fused path emits a batch's
-        # spans from its stacked record at completion; only the serial
-        # loop pays a per-tick sync for them.
+        # span carrying its metrics.  Both paths write a step's spans
+        # when it ends, from one read of its ticks' metrics: the fused
+        # path from its stacked record, the serial loop from the
+        # commits/leaders it kept.
         self.tracer = None
         # Fused multi-tick stepping; MRT_ENGINE_PIPELINE=0 is the kill
         # switch (serial per-tick stepping).
@@ -947,6 +948,7 @@ class EngineDriver:
             "them first, or the two tick streams interleave"
         )
         self.metrics.inc("ticks", n)
+        traced = []  # (start, metrics, backlog) a tick
         for _ in range(n):
             self.tick += 1
             t_wall = time.perf_counter() if self.tracer else 0.0
@@ -973,25 +975,51 @@ class EngineDriver:
                     )
             self.last_metrics = metrics
             if self.tracer:
-                commits = int(_metric_np(metrics, "commits"))  # forces the sync
-                self.metrics.observe(
-                    "tick_wall_s", time.perf_counter() - t_wall
-                )
-                now_us = time.perf_counter() * 1e6
-                self.tracer.span(
-                    "tick",
-                    t_wall * 1e6,
-                    now_us - t_wall * 1e6,
-                    track="engine",
-                    tick=self.tick,
-                    commits=commits,
-                    leaders=int(_metric_np(metrics, "leaders")),
-                )
-                self.tracer.counter(
-                    "consensus", now_us,
-                    {"commits": commits, "backlog": int(self.backlog.sum())},
-                )
+                traced.append((t_wall, metrics, int(self.backlog.sum())))
+        if traced:
+            self._emit_serial_spans(traced)
         return self.last_metrics
+
+    def _emit_serial_spans(self, traced) -> None:
+        """Tracer spans and counters for a serial step's ticks, written
+        once all are enqueued.  On one device, a single read brings
+        their commits and leaders to the host together with the last
+        tick's metrics (``last_metrics``).  A tick's span runs from its
+        start on the host to the next one's; the last ends when the
+        read returns."""
+        if self.mesh is None:
+            last = self._last_metrics
+            flat = _np(torch.cat(
+                [torch.stack([m[k] for _, m, _ in traced for k in ("commits", "leaders")])]
+                + [v.reshape(-1) for v in last.values()]
+            ))
+            vals = flat[: 2 * len(traced)].reshape(-1, 2)
+            off, host_last = vals.size, {}
+            for k, v in last.items():
+                host_last[k] = flat[off: off + v.numel()].reshape(v.shape)
+                off += v.numel()
+            self._last_metrics = host_last
+        else:  # per-shard lanes, reduced on the host
+            vals = [(_metric_np(m, "commits"), _metric_np(m, "leaders"))
+                    for _, m, _ in traced]
+        now = time.perf_counter()
+        ends = [t for t, *_ in traced[1:]] + [now]
+        tick0 = self.tick - len(traced)
+        for i, ((t0, _, backlog), t1) in enumerate(zip(traced, ends)):
+            commits, leaders = int(vals[i][0]), int(vals[i][1])
+            self.metrics.observe("tick_wall_s", t1 - t0)
+            self.tracer.span(
+                "tick",
+                t0 * 1e6,
+                (t1 - t0) * 1e6,
+                track="engine",
+                tick=tick0 + 1 + i,
+                commits=commits,
+                leaders=leaders,
+            )
+            self.tracer.counter(
+                "consensus", t1 * 1e6, {"commits": commits, "backlog": backlog},
+            )
 
     def _tick_one(self, tick_key: torch.Tensor, have_backlog: bool):
         """One tick on the one device, then the fault model."""

@@ -13,7 +13,9 @@ They replace the reference's Pallas TPU kernels
 Dispatch is by the tensors' device: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel (built from ``csrc/`` with
 ``nvcc`` at first use, loaded with ``ctypes``) or raises.  Nothing falls
-back.  ``LAUNCHES`` counts kernel launches, and only those.
+back.  ``LAUNCHES`` counts kernel launches, and only those.  While
+``torch.profiler`` records, each call runs inside an
+``mrt.kernel.<name>`` range.
 
 Both kernels cut the row-major ``[G, P, ...]`` planes into tiles of
 consecutive (g, p) rows, stage each tile into shared memory with bulk
@@ -36,6 +38,8 @@ from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from ..utils import trace
 
 __all__ = [
     "LAUNCHES", "MAX_P", "SOURCES", "TilePlan", "build_library",
@@ -282,29 +286,30 @@ def quorum_commit(
     quorum: int,
 ) -> torch.Tensor:
     """:func:`quorum_commit_plain`, as the CUDA kernel on a CUDA tensor."""
-    G, P, _ = eff_match.shape
-    L = log_term.shape[-1]
-    if not _route(eff_match, P):
-        return quorum_commit_plain(
-            eff_match, term, commit, base, base_term, log_term, is_leader,
-            quorum,
+    with trace.span("mrt.kernel.quorum_commit"):
+        G, P, _ = eff_match.shape
+        L = log_term.shape[-1]
+        if not _route(eff_match, P):
+            return quorum_commit_plain(
+                eff_match, term, commit, base, base_term, log_term, is_leader,
+                quorum,
+            )
+        _check_staged("eff_match", eff_match, torch.int32, (G, P, P))
+        _check_staged("commit", commit, torch.int32, (G, P))
+        for name, t in (("term", term), ("base", base), ("base_term", base_term)):
+            _check(name, t, torch.int32, (G, P))
+        _check("log_term", log_term, torch.int32, (G, P, L))
+        _check_staged("is_leader", is_leader, torch.bool, (G, P))
+        out = torch.empty((G, P), dtype=torch.int32, device=eff_match.device)
+        rc = _library().mrt_quorum_commit(
+            eff_match.data_ptr(), term.data_ptr(), commit.data_ptr(),
+            base.data_ptr(), base_term.data_ptr(), log_term.data_ptr(),
+            is_leader.data_ptr(), out.data_ptr(), G, P, L, int(quorum),
+            *_launch_plan(G * P, P, "quorum_commit", out.device), _stream(out),
         )
-    _check_staged("eff_match", eff_match, torch.int32, (G, P, P))
-    _check_staged("commit", commit, torch.int32, (G, P))
-    for name, t in (("term", term), ("base", base), ("base_term", base_term)):
-        _check(name, t, torch.int32, (G, P))
-    _check("log_term", log_term, torch.int32, (G, P, L))
-    _check_staged("is_leader", is_leader, torch.bool, (G, P))
-    out = torch.empty((G, P), dtype=torch.int32, device=eff_match.device)
-    rc = _library().mrt_quorum_commit(
-        eff_match.data_ptr(), term.data_ptr(), commit.data_ptr(),
-        base.data_ptr(), base_term.data_ptr(), log_term.data_ptr(),
-        is_leader.data_ptr(), out.data_ptr(), G, P, L, int(quorum),
-        *_launch_plan(G * P, P, "quorum_commit", out.device), _stream(out),
-    )
-    _raise_on(rc, "quorum_commit")
-    LAUNCHES["quorum_commit"] += 1
-    return out
+        _raise_on(rc, "quorum_commit")
+        LAUNCHES["quorum_commit"] += 1
+        return out
 
 
 def vote_tally(
@@ -314,21 +319,22 @@ def vote_tally(
     quorum: int,
 ) -> torch.Tensor:
     """:func:`vote_tally_plain`, as the CUDA kernel on a CUDA tensor."""
-    G, P, _ = votes.shape
-    if not _route(votes, P):
-        return vote_tally_plain(votes, role, alive, quorum)
-    _check_staged("votes", votes, torch.bool, (G, P, P))
-    _check_staged("role", role, torch.int32, (G, P))
-    _check_staged("alive", alive, torch.bool, (G, P))
-    out = torch.empty((G, P), dtype=torch.bool, device=votes.device)
-    rc = _library().mrt_vote_tally(
-        votes.data_ptr(), role.data_ptr(), alive.data_ptr(), out.data_ptr(),
-        G, P, int(quorum), *_launch_plan(G * P, P, "vote_tally", out.device),
-        _stream(out),
-    )
-    _raise_on(rc, "vote_tally")
-    LAUNCHES["vote_tally"] += 1
-    return out
+    with trace.span("mrt.kernel.vote_tally"):
+        G, P, _ = votes.shape
+        if not _route(votes, P):
+            return vote_tally_plain(votes, role, alive, quorum)
+        _check_staged("votes", votes, torch.bool, (G, P, P))
+        _check_staged("role", role, torch.int32, (G, P))
+        _check_staged("alive", alive, torch.bool, (G, P))
+        out = torch.empty((G, P), dtype=torch.bool, device=votes.device)
+        rc = _library().mrt_vote_tally(
+            votes.data_ptr(), role.data_ptr(), alive.data_ptr(), out.data_ptr(),
+            G, P, int(quorum), *_launch_plan(G * P, P, "vote_tally", out.device),
+            _stream(out),
+        )
+        _raise_on(rc, "vote_tally")
+        LAUNCHES["vote_tally"] += 1
+        return out
 
 
 def empty_launch(plan: TilePlan, device: torch.device) -> None:
