@@ -6,8 +6,9 @@ The configurations state no precision; the guarantee broken is the
 commit quorum: the control's leader commits an entry as soon as it holds
 it itself (a quorum of 1), acknowledging writes that no follower has.
 It runs the cell's whole run, at the cell's own size on the card, with
-the reference's tick (:mod:`.reference.tick`) in the window's place, and
-the sound reference replays the sample as in every run.
+the tick of the cell's reference (:mod:`.reference.tick` by default) in
+the window's place, and the sound reference replays the sample as in
+every run.
 
     python -m cellbench.control --workload <name> --seeds 1 2 3 --seconds 5
 
@@ -24,7 +25,7 @@ import sys
 import torch
 
 from . import harness, manifest
-from .reference import tick as rtick
+from .reference import prng
 
 BROKEN_QUORUM = 1
 
@@ -32,12 +33,13 @@ BROKEN_QUORUM = 1
 def control_step(conf: dict, device, commit_quorum: int = BROKEN_QUORUM):
     """A window step that runs the reference's tick over every group
     with ``commit_quorum``, in the engine's calling convention."""
-    rcfg = harness.ref_config(conf, conf["G"], commit_quorum)
+    ref = harness.reference(conf)
+    rcfg = ref.config(conf, conf["G"], commit_quorum)
     rows = torch.arange(conf["G"], device=torch.device(device))
 
     def step(cfg, state, inbox, new_cmds, key):
-        k = rtick.prng.fold_in(tuple(int(x) for x in key.tolist()), 0)
-        state, inbox, rec = rtick.tick(rcfg, state, inbox, new_cmds, k, rows)
+        k = prng.fold_in(tuple(int(x) for x in key.tolist()), 0)
+        state, inbox, rec = ref.tick(rcfg, state, inbox, new_cmds, k, rows)
         return state, inbox, {name: v[None] for name, v in rec.items()}
 
     return step

@@ -5,21 +5,26 @@ The program under test is ``multiraft_tpu_torch``: the window calls
 ``engine.core.run_ticks_traced_vec`` one tick at a time, with the
 configuration's kernels on, and records a CUDA event after each tick
 without synchronising, so the host stays ahead of the device and every
-tick has a device timestamp.  Leader kills (:mod:`.surgery`) are
-enqueued between ticks.  After the window the drain runs a few more
-ticks without new kills, so that the window's last victims can be
-served again; nothing of the drain counts towards ``writes_per_s``.
+tick has a device timestamp.  The mix's events (:mod:`.events`, such as
+leader kills) are enqueued between ticks.  After the window the drain
+runs a few more ticks without new events, so that the window's last
+victims can be served again; nothing of the drain counts towards
+``writes_per_s``.  ``attempted`` and ``failed`` are counted over the
+mix's fixed span of window ticks (:class:`.traffic.Count`).
 
 A traced run traces two stretches of the window back to back: the first
 with the device's activity alone, from which the device's busy and idle
 time, the launches and the kernels' times are read; the second with the
 host's activity too, which slows the host, for the breakdown of the
-device's idle time by what the host was doing.
+device's idle time by what the host was doing.  Tracing takes seconds of
+the window, so a traced run, which reports no end-to-end metric, holds
+its window open until it has run the failure count's ticks.
 
 Once the drain has ended and the peak memory is read, the program's
-state is freed and :mod:`.reference` replays a sample of groups, drawn
-from the seed, from the same inputs: its final state and its per-tick
-records have to equal the program's, value for value.
+state is freed and the configuration's reference (``cellbench/reference/
+<name>.py``, :mod:`.reference.tick` by default) replays a sample of
+groups, drawn from the seed, from the same inputs: its final state and
+its per-tick records have to equal the program's, value for value.
 
 :func:`run` takes the device and may take another ``step`` in place of
 the program's; the command line (:mod:`.run`) passes the card only.
@@ -28,6 +33,7 @@ the program's; the command line (:mod:`.run`) passes the card only.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import sys
 import time
 from dataclasses import dataclass, field
@@ -36,43 +42,62 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from . import latency, surgery, traffic
+from . import latency, manifest, traffic
+from .isolation import program_imports
 from .manifest import Cell
 from .reference import prng as rprng
-from .reference import tick as rtick
 from .trace import STRETCH_SPAN, export, read_trace
 
-RECORD_KEYS = ("ing_hi", "accepted", "accept_term", "commit")
 TRACE_FROM = 0.5  # share of the window's seconds after which the traced stretch starts
 TRACE_TICKS = 40  # ticks in each traced stretch
 STRETCHES = ("device", "host")  # the traced stretches' activities, in order
 CAPTURE_AT = (0, 13, 26, 39)  # device stretch ticks whose kernel inputs the rooflines read
-STATE_PLANES = tuple(rtick.State._fields)
+REQUIRED = ("G", "P", "L", "E", "INGEST", "HB_TICKS", "ELECT_MIN", "ELECT_MAX",
+            "use_kernels", "prevote", "check_quorum", "membership")
 
 Step = Callable  # (cfg, state, inbox, new_cmds, key) -> (state, inbox, rec)
 
 
 def engine_config(conf: dict):
+    """The program's ``EngineConfig`` from every key of the configuration
+    that names one of its fields; the :data:`REQUIRED` keys must be
+    there, keys that name no field are left out."""
     from multiraft_tpu_torch.engine.core import EngineConfig
 
-    return EngineConfig(
-        G=conf["G"], P=conf["P"], L=conf["L"], E=conf["E"],
-        INGEST=conf["INGEST"], HB_TICKS=conf["HB_TICKS"],
-        ELECT_MIN=conf["ELECT_MIN"], ELECT_MAX=conf["ELECT_MAX"],
-        use_kernels=conf["use_kernels"], prevote=conf["prevote"],
-        check_quorum=conf["check_quorum"], membership=conf["membership"],
-    )
+    missing = [k for k in REQUIRED if k not in conf]
+    if missing:
+        raise KeyError(f"the configuration lacks {missing}")
+    names = {f.name for f in dataclasses.fields(EngineConfig)}
+    return EngineConfig(**{k: v for k, v in conf.items() if k in names})
 
 
-def ref_config(conf: dict, G: int, commit_quorum: int = 0) -> rtick.Config:
-    if conf["membership"] and not conf["use_kernels"]:
-        raise NotImplementedError("the reference has no joint-consensus path")
-    return rtick.Config(
-        G=G, P=conf["P"], L=conf["L"], E=conf["E"], INGEST=conf["INGEST"],
-        HB_TICKS=conf["HB_TICKS"], ELECT_MIN=conf["ELECT_MIN"],
-        ELECT_MAX=conf["ELECT_MAX"], prevote=conf["prevote"],
-        check_quorum=conf["check_quorum"], commit_quorum=commit_quorum,
-    )
+def reference(conf: dict):
+    """The configuration's reference module (``"reference"``, default
+    ``tick``) under ``cellbench/reference/``."""
+    return manifest.module("reference", conf.get("reference", "tick"))
+
+
+def events_of(mix: traffic.Mix, G: int, seed: int):
+    """The mix's events, planned from the seed; None without events."""
+    if mix.events is None:
+        return None
+    return manifest.module("events", mix.events).plan(mix.event_params, G, seed)
+
+
+def events_apply_reference(mix: traffic.Mix, events):
+    """The function that applies the events to the reference's state:
+    ``apply_reference``, or ``apply`` where the event module imports
+    nothing of the program (:func:`.isolation.program_imports`)."""
+    if events is None:
+        return None
+    if hasattr(events, "apply_reference"):
+        return events.apply_reference
+    path = manifest.ROOT / "events" / f"{mix.events}.py"
+    bad = program_imports(path, f"cellbench.events.{mix.events}")
+    if bad:
+        raise ImportError(f"{path} imports the program ({bad}) and gives no "
+                          f"apply_reference for the reference's side")
+    return events.apply
 
 
 def program_step() -> Step:
@@ -96,32 +121,32 @@ class Window:
     seconds: float = 0.0  # host clock, synchronised at both ends
     enqueue_s: float = 0.0  # host time in the calls into the tick loop
     enqueue_ticks: int = 0  # untraced window ticks that enqueue_s covers
-    kill_s: float = 0.0  # host time enqueueing kills
+    event_s: float = 0.0  # host time enqueueing events
     stretch_s: float = 0.0  # host time of the traced stretches, syncs included
     stretch_ticks: int = 0
     stretch_host_s: dict = field(default_factory=dict)  # the same, by stretch
-    rounds: list = field(default_factory=list)  # (tick, groups, hit, event)
+    rounds: list = field(default_factory=list)  # (tick, rows, hit, clock event); rows None: no loss
 
 
 class Records:
     """Per-tick ``[rows, G]`` record planes, preallocated in chunks so that
     the window allocates nothing."""
 
-    def __init__(self, G: int, rows: int, device) -> None:
-        self.G, self.chunk, self.device = G, max(rows, 1), device
+    def __init__(self, G: int, rows: int, device, keys) -> None:
+        self.G, self.chunk, self.device, self.keys = G, max(rows, 1), device, tuple(keys)
         self.chunks: List[Dict[str, torch.Tensor]] = []
         self._grow()
 
     def _grow(self) -> None:
         self.chunks.append({k: torch.empty((self.chunk, self.G), dtype=torch.int32,
                                            device=self.device)
-                            for k in RECORD_KEYS})
+                            for k in self.keys})
 
     def put(self, t: int, rec: Dict[str, torch.Tensor]) -> None:
         c, r = divmod(t, self.chunk)
         while c >= len(self.chunks):
             self._grow()
-        for k in RECORD_KEYS:
+        for k in self.keys:
             self.chunks[c][k][r].copy_(rec[k][0])
 
     def stacked(self, n: int, key: str, cols=None) -> torch.Tensor:
@@ -136,7 +161,7 @@ class Records:
 
 
 class Clock:
-    """A CUDA event after every tick and kill, against one start event."""
+    """A CUDA event after every tick and event round, against one start event."""
 
     def __init__(self, device, n: int) -> None:
         self.on = device.type == "cuda"
@@ -168,6 +193,7 @@ class Outcome:
     memory_peak_bytes: Optional[int]
     writes: dict
     failover: Optional[dict]
+    count: dict  # the failure count over the mix's span (_Run.count)
     checks: Dict[str, dict]
     stretch: object = None  # traced with the device's activity alone
     host_stretch: object = None  # traced with the host's activity too
@@ -180,12 +206,15 @@ class Outcome:
 
     @property
     def attempted(self) -> int:
-        return self.writes["accepted_committed"] + self.writes["truncated"]
+        """Entries accepted in the count's span that ended committed or
+        truncated."""
+        return self.count["committed"] + self.count["truncated"]
 
     @property
     def failed(self) -> int:
-        unserved = self.failover["unserved"] if self.failover else 0
-        return self.writes["truncated"] + unserved
+        """Of those, the truncated ones, and the span's event rounds'
+        losses of service not made good by the count's last tick."""
+        return self.count["truncated"] + self.count["unserved"]
 
 
 def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
@@ -204,7 +233,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
     memory_peak = r.program_peak()
     stretch, host_stretch = r.read_stretches()
     prog_state, prog_recs = r.sample_of_program()
-    writes, fo = r.reduce()
+    writes, fo, count = r.reduce()
     h = time.perf_counter()
     ref_state, ref_recs = replay(r.conf, r.mix, seed, r.sample, r.win.ticks, r.win.drain)
     checks = compare(prog_state, prog_recs, ref_state, ref_recs)
@@ -212,7 +241,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
         f"{r.t} ticks in {time.perf_counter() - h:.3f} s")
     return Outcome(cell=cell, window=r.win, setup_s=setup_s,
                    memory_peak_bytes=memory_peak, writes=writes, failover=fo,
-                   checks=checks, stretch=stretch, host_stretch=host_stretch,
+                   count=count, checks=checks, stretch=stretch, host_stretch=host_stretch,
                    kind=torch.cuda.get_device_name(r.dev) if r.on_card else "cpu")
 
 
@@ -225,21 +254,24 @@ class _Run:
         self.dev, self.step, self.conf = dev, step, conf
         self.on_card = dev.type == "cuda"
         self.mix = traffic.load(cell.traffic_path)
+        self.count_span = traffic.Count.load(cell.count_path)
+        self.ref = reference(conf)
         self.cfg = engine_config(conf)
         G = self.cfg.G
         self.base = rprng.key(traffic.key_seed(seed))
-        self.victims = traffic.Victims(self.mix, G, seed) if self.mix.kill_every else None
-        self.sample = traffic.sample(self.mix, G, seed, self.victims)
+        self.events = events_of(self.mix, G, seed)
+        self.sample = traffic.sample(self.mix, G, seed, self.events)
         self.cmds = torch.from_numpy(traffic.ingest(self.mix, G)).to(dev)
         if self.on_card:
             torch.cuda.reset_peak_memory_stats(dev)
         self.st = init_state(self.cfg, torch.tensor(self.base, dtype=torch.uint32), dev)
         self.mb = empty_mailbox(self.cfg, dev)
         self.t = 0  # global tick
-        self.prev: Optional[surgery.Killed] = None
+        self.carry = None  # what the last event round returned
         self.win = Window()
         self.prof = self.capture = self.kind = None  # the open stretch
         self.traced: Dict[str, str] = {}  # closed stretches' trace files, by kind
+        self.stretch_at: Dict[str, int] = {}  # each stretch's first window tick, by kind
 
     def tick(self, cmds) -> dict:
         self.st, self.mb, rec = self.step(self.cfg, self.st, self.mb, cmds,
@@ -247,11 +279,13 @@ class _Run:
         self.t += 1
         return rec
 
-    def kill(self, groups) -> None:
-        self.st, self.mb, self.prev = surgery.kill_leaders(self.st, self.mb, groups, self.prev)
+    def event(self, r: int) -> None:
+        rows = self.rounds[r] if r < len(self.rounds) else \
+            torch.from_numpy(self.events.rows(r)).to(self.dev)
+        self.st, self.mb, self.carry = self.events.apply(self.st, self.mb, rows, rows, self.carry)
 
     def setup(self, seconds: float, trace: bool = False) -> None:
-        """Elect, fill with load (the fill's kill round included), and
+        """Elect, fill with load (the fill's event round included), and
         size the record buffers from the fill's pace.  Before a traced
         window, start and stop the profiler once: its first start takes
         seconds."""
@@ -265,9 +299,10 @@ class _Run:
             self.tick(idle)
         _sync(self.dev)
         t_fill = time.perf_counter()
-        if self.victims is not None:
-            self.kill(torch.from_numpy(self.victims.round(0)).to(self.dev))
-        probe = Records(self.cfg.G, 1, self.dev)
+        self.rounds: List[torch.Tensor] = []
+        if self.events is not None:
+            self.event(0)
+        probe = Records(self.cfg.G, 1, self.dev, self.ref.RECORD_KEYS)
         for _ in range(self.mix.fill_ticks):
             probe.put(0, self.tick(self.cmds))
         _sync(self.dev)
@@ -276,21 +311,23 @@ class _Run:
         if self.on_card:
             self.setup_peak = torch.cuda.max_memory_allocated(self.dev)
             before = torch.cuda.memory_allocated(self.dev)
-        cap = int(seconds / max(per_tick, 1e-4) * 1.5) + self.mix.drain_ticks + 64
-        self.recs = Records(self.cfg.G, cap, self.dev)
-        every = self.mix.kill_every
+        cap = max(int(seconds / max(per_tick, 1e-4) * 1.5),
+                  self.count_span.ticks if trace else 0) + self.mix.drain_ticks + 64
+        self.recs = Records(self.cfg.G, cap, self.dev, self.ref.RECORD_KEYS)
+        every = self.events.every if self.events is not None else 0
         self.clock = Clock(self.dev, cap + cap // max(every, 1) + 4)
-        if self.victims is not None:  # every round the buffers can hold
-            self.rounds = torch.from_numpy(np.stack(
-                [self.victims.round(r) for r in range(cap // every + 2)])).to(self.dev)
+        if self.events is not None:  # every round the buffers can hold
+            self.rounds = [torch.from_numpy(self.events.rows(r)).to(self.dev)
+                           for r in range(cap // every + 2)]
         _sync(self.dev)
         if self.on_card:  # the benchmark's own buffers, held to the drain's end
             self.harness_bytes = torch.cuda.memory_allocated(self.dev) - before
             torch.cuda.reset_peak_memory_stats(self.dev)
 
     def window(self, seconds: float, trace: bool) -> None:
-        win, every = self.win, self.mix.kill_every
+        win, events = self.win, self.events
         todo = list(STRETCHES) if trace else []
+        least = self.count_span.ticks if trace else 0  # a traced window's fewest ticks
         began = None  # the window tick at which the open stretch began
         t0 = time.perf_counter()
         if self.clock.on:
@@ -299,20 +336,18 @@ class _Run:
         try:
             while True:
                 if self.prof is None and todo and time.perf_counter() - t0 >= TRACE_FROM * seconds:
-                    began = w
+                    began = self.stretch_at[todo[0]] = w
                     self._start_stretch(todo.pop(0))
                 if self.capture is not None:
                     self.capture.active = self.kind == "device" and (w - began) in CAPTURE_AT
-                if self.victims is not None and w % every == 0:
-                    r = 1 + w // every
-                    g = self.rounds[r] if r < len(self.rounds) else \
-                        torch.from_numpy(self.victims.round(r)).to(self.dev)
+                if events is not None and w % events.every == 0:
                     h = time.perf_counter()
-                    with self._span("cellbench.kills"):
-                        self.kill(g)
+                    with self._span("cellbench.events"):
+                        self.event(1 + w // events.every)
                         ev = self.clock.mark()
-                    win.kill_s += time.perf_counter() - h
-                    win.rounds.append((w, self.prev.groups, self.prev.hit, ev))
+                    win.event_s += time.perf_counter() - h
+                    rows, hit = events.lost(self.carry) or (None, None)
+                    win.rounds.append((w, rows, hit, ev))
                 h = time.perf_counter()
                 with self._span("cellbench.tick"):
                     rec = self.tick(self.cmds)
@@ -325,7 +360,8 @@ class _Run:
                 w += 1
                 if self.prof is not None and w == began + TRACE_TICKS:
                     self._stop_stretch()
-                if time.perf_counter() - t0 >= seconds and self.prof is None and not todo:
+                if time.perf_counter() - t0 >= seconds and self.prof is None and not todo \
+                        and w >= least:
                     break
         finally:
             if self.capture is not None:
@@ -333,6 +369,8 @@ class _Run:
         _sync(self.dev)
         win.seconds = time.perf_counter() - t0
         win.ticks = w
+        if least and w == least:
+            log(f"cellbench: the traced window ran on to {w} ticks, the failure count's")
 
     def drain(self) -> None:
         for _ in range(self.mix.drain_ticks):
@@ -394,6 +432,10 @@ class _Run:
         self.traced = {}
         w = self.win
         untraced = w.enqueue_s * 1e3 / max(w.enqueue_ticks, 1)
+        tick_ms, _ = _split_marks(self.clock.ms(), w)
+        by_events = {}  # each stretch's ms a tick between the CUDA events at its ticks' ends
+        for kind, b in self.stretch_at.items():
+            by_events[kind] = (tick_ms[b + TRACE_TICKS - 1] - tick_ms[b]) / (TRACE_TICKS - 1)
         log(f"cellbench: traces of 2 x {TRACE_TICKS} ticks (written out inside the window) "
             f"read in {time.perf_counter() - h:.3f} s; "
             f"ms a tick, host time / device window / device busy: device activity only "
@@ -402,7 +444,9 @@ class _Run:
             f"({len(dev.host_ops)} host events), with host activity "
             f"{w.stretch_host_s['host'] * 1e3 / TRACE_TICKS:.3f} / "
             f"{host.window_s * 1e3 / TRACE_TICKS:.3f} / {host.busy_s * 1e3 / TRACE_TICKS:.3f}; "
-            f"untraced enqueue {untraced:.3f}")
+            f"untraced enqueue {untraced:.3f}; the same ticks between the harness's CUDA events, "
+            f"device activity only {by_events['device']:.3f}, with host activity "
+            f"{by_events['host']:.3f}")
         return dev, host
 
     def program_peak(self) -> Optional[int]:
@@ -419,32 +463,34 @@ class _Run:
         return peak
 
     def sample_of_program(self):
-        """The sampled groups' final state planes and per-tick records,
-        on the host; then the program's state goes."""
+        """The sampled groups' final state planes (those of the reference's
+        ``State``) and per-tick records, on the host; then the program's
+        state goes."""
         rows = torch.from_numpy(self.sample).to(self.dev)
         state = {f: getattr(self.st, f)[rows].cpu() if getattr(self.st, f).dim()
-                 else getattr(self.st, f).cpu() for f in STATE_PLANES}
+                 else getattr(self.st, f).cpu() for f in self.ref.State._fields}
         total = self.win.ticks + self.win.drain
-        recs = {k: self.recs.stacked(total, k, rows).cpu() for k in RECORD_KEYS}
+        recs = {k: self.recs.stacked(total, k, rows).cpu() for k in self.recs.keys}
         self.st = self.mb = None
         return state, recs
 
     def reduce(self):
-        """The window's writes and the kills' time without service, from
-        the records and the clock; then the records go."""
+        """The window's writes, the event rounds' time without service and
+        the failure count, from the records and the clock; then the
+        records go."""
         h = time.perf_counter()
         win, recs = self.win, self.recs
-        tick_ms, kill_ms = _split_marks(self.clock.ms(), win)
+        tick_ms, event_ms = _split_marks(self.clock.ms(), win)
         writes = latency.writes(
             recs.stacked(win.ticks, "accepted"), recs.stacked(win.ticks, "ing_hi"),
             recs.stacked(win.ticks, "commit"), self.C0, tick_ms)
+        losses = [(tk, g, hit, event_ms[i] if event_ms is not None else None)
+                  for i, (tk, g, hit, _) in enumerate(win.rounds) if g is not None]
         fo = None
-        if self.victims is not None:
-            fo = latency.failover(
-                recs.stacked(win.ticks + win.drain, "commit"),
-                [(tk, g, hit, kill_ms[i] if kill_ms is not None else None)
-                 for i, (tk, g, hit, _) in enumerate(win.rounds)],
-                tick_ms, self.C0)
+        if losses:
+            fo = latency.failover(recs.stacked(win.ticks + win.drain, "commit"),
+                                  losses, tick_ms, self.C0)
+        count = self.count(losses)
         log(f"cellbench: records reduced in {time.perf_counter() - h:.3f} s")
         if tick_ms is not None and win.ticks > 1:
             d = np.diff(tick_ms[: win.ticks])
@@ -455,7 +501,29 @@ class _Run:
         self.recs = self.C0 = None
         if self.on_card:
             torch.cuda.empty_cache()
-        return writes, fo
+        return writes, fo, count
+
+    def count(self, losses) -> dict:
+        """``attempted`` and ``failed`` over the mix's span
+        (:class:`.traffic.Count`): entries accepted in the span's window
+        ticks and the losses of service of the rounds begun in them, all
+        judged at the end of the span's outcome ticks.  A window too short
+        for the whole span counts the part it covers and says so."""
+        want, after = self.count_span.window_ticks, self.count_span.outcome_ticks
+        span = min(want, max(self.win.ticks - after, 0))
+        judge = min(span + after, self.win.ticks)
+        if span < want:
+            log(f"cellbench: the window's {self.win.ticks} ticks cover {span} of the failure "
+                f"count's {want} (+{after} to judge them): attempted and failed count those")
+        out = {"span": span, "judged_at": judge, "committed": 0, "truncated": 0, "unserved": 0}
+        if span:
+            C = self.recs.stacked(judge, "commit")
+            out.update(latency.settled(self.recs.stacked(judge, "accepted"),
+                                       self.recs.stacked(judge, "ing_hi"), C, span))
+            counted = [(tk, g, hit, None) for tk, g, hit, _ in losses if tk < span]
+            if counted:
+                out["unserved"] = latency.failover(C, counted, None, self.C0)["unserved"]
+        return out
 
 
 def log(msg: str) -> None:
@@ -468,19 +536,19 @@ def _sync(dev) -> None:
 
 
 def _split_marks(T_ms, win: Window):
-    """Per-tick and per-kill times (ms) out of the clock's marks, which
-    interleave a kill's mark before its round's first tick."""
+    """Per-tick and per-round times (ms) out of the clock's marks, which
+    interleave an event round's mark before the round's first tick."""
     if T_ms is None:
         return None, None
-    kill_at = {tk for tk, *_ in win.rounds}
-    tick_ms, kill_ms, i = [], [], 0
+    round_at = {tk for tk, *_ in win.rounds}
+    tick_ms, round_ms, i = [], [], 0
     for w in range(win.ticks + win.drain):
-        if w in kill_at and w < win.ticks:
-            kill_ms.append(T_ms[i])
+        if w in round_at and w < win.ticks:
+            round_ms.append(T_ms[i])
             i += 1
         tick_ms.append(T_ms[i])
         i += 1
-    return np.array(tick_ms), np.array(kill_ms)
+    return np.array(tick_ms), np.array(round_ms)
 
 
 class _KernelCapture:
@@ -526,45 +594,50 @@ def replay(conf: dict, mix: traffic.Mix, seed: int, sample: np.ndarray,
     """The reference's run of the sampled groups on the CPU, from the
     same inputs: returns its final state planes and its records of the
     window and the drain."""
+    ref = reference(conf)
     with torch.inference_mode():
         rows = torch.from_numpy(sample)
-        rcfg = ref_config(conf, len(sample), commit_quorum)
+        rcfg = ref.config(conf, len(sample), commit_quorum)
         G = conf["G"]
         base = rprng.key(traffic.key_seed(seed))
-        victims = traffic.Victims(mix, G, seed) if mix.kill_every else None
+        events = events_of(mix, G, seed)
         local = {int(g): i for i, g in enumerate(sample)}
         cmds = torch.from_numpy(traffic.ingest(mix, G)[sample])
         idle = torch.zeros_like(cmds)
-        st = rtick.init_state(rcfg, base, rows)
-        mb = rtick.empty_mailbox(rcfg, rows.device)
-        prev = None
+        st = ref.init_state(rcfg, base, rows)
+        mb = ref.empty_mailbox(rcfg, rows.device)
+        carry = None
+        apply = events_apply_reference(mix, events)
 
-        def kill(r):
-            nonlocal st, mb, prev
-            here = [local[int(g)] for g in victims.round(r) if int(g) in local]
-            st, mb, prev = surgery.kill_leaders(
-                st, mb, torch.tensor(here, dtype=torch.int64), prev)
+        def event(r):
+            nonlocal st, mb, carry
+            here = [int(g) for g in events.rows(r) if int(g) in local]
+            st, mb, carry = apply(st, mb, torch.tensor([local[g] for g in here], dtype=torch.int64),
+                                  torch.tensor(here, dtype=torch.int64), carry)
+
+        def tick(st, mb, cmds, t):
+            return ref.tick(rcfg, st, mb, cmds, rprng.fold_in(rprng.fold_in(base, t), 0), rows)
 
         t = 0
         for _ in range(mix.boot_ticks):
-            st, mb, _ = rtick.tick(rcfg, st, mb, idle, rprng.fold_in(rprng.fold_in(base, t), 0), rows)
+            st, mb, _ = tick(st, mb, idle, t)
             t += 1
-        if victims is not None:
-            kill(0)
+        if events is not None:
+            event(0)
         for _ in range(mix.fill_ticks):
-            st, mb, _ = rtick.tick(rcfg, st, mb, cmds, rprng.fold_in(rprng.fold_in(base, t), 0), rows)
+            st, mb, _ = tick(st, mb, cmds, t)
             t += 1
-        out = {k: [] for k in RECORD_KEYS}
+        out = {k: [] for k in ref.RECORD_KEYS}
         for w in range(window_ticks + drain_ticks):
-            if victims is not None and w < window_ticks and w % mix.kill_every == 0:
-                kill(1 + w // mix.kill_every)
-            st, mb, rec = rtick.tick(rcfg, st, mb, cmds, rprng.fold_in(rprng.fold_in(base, t), 0), rows)
-            for k in RECORD_KEYS:
+            if events is not None and w < window_ticks and w % events.every == 0:
+                event(1 + w // events.every)
+            st, mb, rec = tick(st, mb, cmds, t)
+            for k in ref.RECORD_KEYS:
                 out[k].append(rec[k])
             t += 1
         recs = {k: torch.stack(v) if v else torch.zeros((0, len(sample)), dtype=torch.int32)
                 for k, v in out.items()}
-        state = {f: getattr(st, f) for f in STATE_PLANES}
+        state = {f: getattr(st, f) for f in ref.State._fields}
     return state, recs
 
 
@@ -574,14 +647,14 @@ def compare(prog_state, prog_recs, ref_state, ref_recs) -> Dict[str, dict]:
     Both limits are 0: the tick is integer arithmetic and the reference
     reproduces it exactly."""
     state_diff = 0
-    for f in STATE_PLANES:
+    for f in ref_state:
         a, b = prog_state[f], ref_state[f]
         if a.shape != b.shape:
             state_diff += max(a.numel(), b.numel())
         else:
             state_diff += int((a.to(torch.int64) != b.to(torch.int64)).sum())
     record_diff = 0
-    for k in RECORD_KEYS:
+    for k in ref_recs:
         a, b = prog_recs[k], ref_recs[k]
         if a.shape != b.shape:
             record_diff += max(a.numel(), b.numel())

@@ -114,6 +114,20 @@ def writes(acc: torch.Tensor, hi: torch.Tensor, C: torch.Tensor,
     return out
 
 
+def settled(acc: torch.Tensor, hi: torch.Tensor, C: torch.Tensor, span: int) -> Dict[str, int]:
+    """The entries accepted in the records' first ``span`` ticks, judged
+    by the whole records: ``committed`` by their last tick (and not
+    superseded), or ``truncated`` by a later binding in them.  Those still
+    in flight are in neither."""
+    acc, hi, C = acc.to(torch.int32), hi.to(torch.int32), C.to(torch.int32)
+    lo, end = survivors(acc, hi)
+    lo, end = lo[:span], end[:span]
+    accepted = int(acc[:span].sum(dtype=torch.int64))
+    kept = int((end - lo).sum(dtype=torch.int64))
+    done = int((torch.minimum(end, C[-1]) - lo).clamp(min=0).sum(dtype=torch.int64))
+    return {"committed": done, "truncated": accepted - kept}
+
+
 def failover(C: torch.Tensor, rounds: Sequence[tuple],
              T_ms: Optional[np.ndarray], C0: torch.Tensor) -> Dict[str, object]:
     """Time without service after each kill.

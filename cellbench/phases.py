@@ -15,14 +15,16 @@ Two readings per layer:
   first ``harness.TRACE_TICKS`` of the recorder's first session: the
   harness traces the device stretch first (``harness.STRETCHES``).
 
-A program without these spans or that recorder reads as nothing: each
-function then returns None.
+Each takes a layer of :data:`LAYERS` or a tuple of ``mrt.*`` span names,
+so that a reader of other spans is a file of its own.  A program without
+these spans or that recorder reads as nothing: each function then
+returns None.
 """
 
 from __future__ import annotations
 
 from collections import defaultdict
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple, Union
 
 from .harness import TRACE_TICKS, log
 from .trace import gaps
@@ -36,6 +38,7 @@ LAYERS = {
 PREFIX = "mrt."
 KERNEL_PREFIX = "mrt.kernel."
 NO_SPAN = ""  # idle time under no mrt.* span
+Spans = Union[str, Tuple[str, ...]]  # a layer of LAYERS, or span names
 
 # The last reading of each kind, with what it read: a run's three readers
 # of a kind share one reading and one log line.
@@ -47,6 +50,10 @@ def _once(kind: str, obj, compute):
     if hit is None or hit[0] is not obj:
         hit = _memo[kind] = (obj, compute(obj))
     return hit[1]
+
+
+def spans_of(spans: Spans) -> Tuple[str, ...]:
+    return LAYERS[spans] if isinstance(spans, str) else tuple(spans)
 
 
 def _phase_spans(stretch):
@@ -97,15 +104,16 @@ def ops_by_span(stretch) -> Dict[str, int]:
     return dict(by)
 
 
-def idle_share(stretch, layer: str) -> Optional[float]:
-    """``layer``'s share of ``stretch``'s window spent idle, in %."""
+def idle_share(stretch, layer: Spans) -> Optional[float]:
+    """The share of ``stretch``'s window spent idle under ``layer``'s
+    spans, in %."""
     if stretch is None or stretch.window[1] <= stretch.window[0]:
         return None
     by = _once("idle", stretch, _logged_idle)
     if by is None:
         return None
     window = stretch.window[1] - stretch.window[0]
-    return 100.0 * sum(by.get(s, 0.0) for s in LAYERS[layer]) / window
+    return 100.0 * sum(by.get(s, 0.0) for s in spans_of(layer)) / window
 
 
 def _logged_idle(stretch) -> Optional[Dict[str, float]]:
@@ -169,9 +177,10 @@ def _phase_ms(out) -> Optional[Dict[str, float]]:
     return dict(mean)
 
 
-def device_ms_per_tick(out, layer: str) -> Optional[float]:
-    """``layer``'s device ms a tick over the device stretch's ticks."""
+def device_ms_per_tick(out, layer: Spans) -> Optional[float]:
+    """The device ms a tick of ``layer``'s spans over the device stretch's
+    ticks."""
     ms = phase_ms(out)
     if ms is None:
         return None
-    return sum(ms.get(s, 0.0) for s in LAYERS[layer])
+    return sum(ms.get(s, 0.0) for s in spans_of(layer))

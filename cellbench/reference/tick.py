@@ -13,8 +13,8 @@ What differs from the program, and why:
   outgoing entry terms) only changes lanes that no receiver reads, and
   is left out.
 * The joint-consensus membership path is left out: the program takes it
-  only without its kernels, and every configuration here runs them.
-  The config lanes of the mailbox go with it.
+  only without its kernels, and :func:`config` refuses a configuration
+  that would take it.  The config lanes of the mailbox go with it.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from . import prng
 
 FOLLOWER, CANDIDATE, LEADER = 0, 1, 2
 I32 = torch.int32
+RECORD_KEYS = ("ing_hi", "accepted", "accept_term", "commit")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +56,18 @@ class Config:
     @property
     def full_voters(self) -> int:
         return (1 << self.P) - 1
+
+
+def config(conf: dict, G: int, commit_quorum: int = 0) -> Config:
+    """The :class:`Config` of a configuration file: every key that names
+    one of its fields, with ``G`` the rows held.  Refuses what this tick
+    cannot replay: the program's joint-consensus path, which it takes with
+    ``membership`` on and its kernels off."""
+    if conf["membership"] and not conf["use_kernels"]:
+        raise NotImplementedError("the reference has no joint-consensus path")
+    names = {f.name for f in dataclasses.fields(Config)}
+    kw = {k: v for k, v in conf.items() if k in names}
+    return Config(**dict(kw, G=G, commit_quorum=commit_quorum))
 
 
 class State(NamedTuple):

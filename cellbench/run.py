@@ -142,7 +142,7 @@ def main(argv=None) -> int:
     log(f"cellbench: {cell.name} seed {args.seed} on {out.card}: "
         f"{out.window.ticks} ticks in {out.window.seconds:.3f} s, drain "
         f"{out.window.drain}; setup {out.setup_s:.3f} s; enqueue "
-        f"{out.window.enqueue_s:.3f} s, kills {out.window.kill_s:.3f} s; committed {w['committed']}, accepted "
+        f"{out.window.enqueue_s:.3f} s, events {out.window.event_s:.3f} s; committed {w['committed']}, accepted "
         f"{w['accepted']} (committed {w['accepted_committed']}, truncated "
         f"{w['truncated']}, in flight {w['in_flight']}, unplaced {w['unplaced']}); "
         f"commit ticks p50/p99 {w['ticks_p50']}/{w['ticks_p99']}, ms "
@@ -151,6 +151,10 @@ def main(argv=None) -> int:
         log(f"cellbench: kills {fo['kills']}, unserved {fo['unserved']}, "
             f"ticks p50/p99 {fo['ticks_p50']}/{fo['ticks_p99']}, ms "
             f"{fo['ms_p50']}/{fo['ms_p99']}")
+    c = out.count
+    log(f"cellbench: failure count over window ticks [0, {c['span']}) judged by ticks "
+        f"[0, {c['judged_at']}): attempted {out.attempted} (committed {c['committed']}, truncated "
+        f"{c['truncated']}), failed {out.failed} (unserved {c['unserved']})")
     for name, c in out.checks.items():
         log(f"compared {name} {c['value']} limit {c['limit']}")
     print(json.dumps(line), flush=True)

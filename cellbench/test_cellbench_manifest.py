@@ -7,7 +7,7 @@ import math
 
 import pytest
 
-from cellbench import manifest, traffic
+from cellbench import harness, manifest, traffic
 from cellbench.manifest import REPO, ROOT
 
 TOP = {"command", "paths", "run_seconds", "configs", "workloads", "end_to_end", "per_layer"}
@@ -71,15 +71,19 @@ def test_configs_files_and_reductions(bench):
     assert len({c["file"] for c in bench["configs"]}) == len(bench["configs"])
 
 
-@pytest.mark.parametrize("name", ["c5.skew_churn", "r3.uniform_steady", "c5.skew_steady"])
+@pytest.mark.parametrize("name", ["c5.skew_churn", "r3.uniform_steady", "c5.skew_steady",
+                                  "r3.uniform_churn"])
 def test_cells_resolve_by_name(bench, name):
     cell = manifest.cell(name, bench)
     assert cell.traffic_path.is_file()
     mix = traffic.load(cell.traffic_path)
     assert mix.boot_ticks > 0 and mix.fill_ticks > 0
+    count = traffic.Count.load(cell.count_path)
+    assert count.window_ticks > 0 and count.outcome_ticks > 0
+    assert callable(harness.reference(cell.conf).tick)
     e2e = {m["name"] for m in cell.end_to_end}
     assert {"setup_s", "writes_per_s"} <= e2e
-    assert ("failover_p99_ms" in e2e) == bool(mix.kill_every)
+    assert ("failover_p99_ms" in e2e) == (mix.events == "leader_kills")
     # The write tail is compared where it is steady: not in c5.skew_steady,
     # where it reads the shared host's random stalls.
     assert ("write_p99_ms" in e2e) == (name != "c5.skew_steady")
@@ -126,12 +130,14 @@ def test_unknown_workload_is_refused(bench):
 def test_traffic_plan_is_a_function_of_the_seed():
     cell = manifest.cell("c5.skew_churn")
     mix = traffic.load(cell.traffic_path)
+    assert (mix.events, mix.event_params) == ("leader_kills", {"share": 0.01, "every_ticks": 100})
     seed = 2**31 + 977
-    v1, v2 = traffic.Victims(mix, 1000, seed), traffic.Victims(mix, 1000, seed)
-    v2.round(5)  # drawing ahead does not change earlier rounds
-    assert all((v1.round(r) == v2.round(r)).all() for r in range(6))
+    kills = manifest.module("events", mix.events)
+    v1, v2 = (kills.plan(mix.event_params, 1000, seed) for _ in range(2))
+    v2.rows(5)  # drawing ahead does not change earlier rounds
+    assert all((v1.rows(r) == v2.rows(r)).all() for r in range(6))
     assert (traffic.sample(mix, 1000, seed, v1) == traffic.sample(mix, 1000, seed, v2)).all()
     assert traffic.key_seed(seed) == traffic.key_seed(seed) < 2**31
     ing = traffic.ingest(mix, 1000)
     assert (ing[:100] == 28).all() and (ing[100:] == 1).all()
-    assert math.isclose(v1.n, 10)
+    assert math.isclose(v1.victims.n, 10) and v1.every == 100

@@ -14,7 +14,7 @@ import torch
 from cellbench import control, harness, manifest
 from cellbench.reference import prng as rprng
 
-CELLS = ["c5.skew_churn", "r3.uniform_steady", "c5.skew_steady"]
+CELLS = ["c5.skew_churn", "r3.uniform_steady", "c5.skew_steady", "r3.uniform_churn"]
 SMALL = {"G": 48}
 SECONDS = 0.4
 
