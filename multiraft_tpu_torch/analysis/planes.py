@@ -31,7 +31,7 @@ idiom, as an ``(index, value)`` write pair of a call such as
 ``_set(plane, (at, v), (col, v))`` whose index is such a tuple, written
 out or through a name the function binds to one
 (``col = (g, slice(None), p)``); Mailbox lifecycle masking goes through
-``_mask_edges``/``mask_active`` and is checked at runtime, not here.
+``membership.drop_edges`` and is checked at runtime, not here.
 """
 
 from __future__ import annotations

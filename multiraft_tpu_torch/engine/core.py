@@ -33,7 +33,7 @@ What differs from the JAX formulation, and why:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -42,7 +42,7 @@ from ..utils.knobs import knob_bool
 from . import kernels
 
 __all__ = [
-    "EngineConfig", "EngineState", "Mailbox", "init_state",
+    "EngineConfig", "EngineState", "Mailbox", "init_state", "seed_voters",
     "empty_mailbox", "tick_impl", "run_ticks", "run_ticks_traced",
     "run_ticks_traced_vec", "METRIC_KEYS", "SCALAR_METRIC_KEYS",
     "TRACE_KEYS",
@@ -60,7 +60,9 @@ METRIC_KEYS = SCALAR_METRIC_KEYS + (
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Static shape/timing parameters; the reference's fields, with
-    ``use_kernels`` in place of ``use_pallas``/``pallas_interpret``."""
+    ``use_kernels`` in place of ``use_pallas``/``pallas_interpret``, and
+    ``replicas``, the first voter set, which the reference sets with
+    ``EngineDriver.seed_config`` instead."""
 
     G: int = 8  # groups
     P: int = 3  # peers per group
@@ -83,6 +85,12 @@ class EngineConfig:
     membership: bool = dataclasses.field(
         default_factory=lambda: knob_bool("MRT_MEMBERSHIP")
     )
+    # Voters each group starts with: init_state seeds slots
+    # 0..replicas-1 as every group's C_old and C_new and the slots above
+    # as dead spares, which a replica move seats as learners (None: all
+    # P, every slot a voter).  Fewer than P needs the masked quorums of
+    # the joint-consensus path (membership_on).
+    replicas: Optional[int] = None
 
     def __post_init__(self) -> None:
         if self.L <= self.E + self.INGEST + 2:
@@ -99,6 +107,30 @@ class EngineConfig:
                 f"EngineConfig: membership mode supports P <= 30 "
                 f"(i32 voter bitmasks), got P={self.P}"
             )
+        if self.replicas is None:
+            object.__setattr__(self, "replicas", self.P)
+        if not 1 <= self.replicas <= self.P:
+            raise ValueError(
+                f"EngineConfig: replicas={self.replicas} must lie in 1..P={self.P}"
+            )
+        if self.replicas < self.P and not self.membership_on:
+            raise ValueError(
+                f"EngineConfig: replicas={self.replicas} < P={self.P} leaves "
+                f"spare slots, which need the masked quorums: membership on "
+                f"and use_kernels off"
+            )
+
+    def __getstate__(self) -> dict:
+        # A checkpoint of a config whose every slot is a voter keeps the
+        # fields it had before ``replicas``, and loads where they are all.
+        state = dict(self.__dict__)
+        if state["replicas"] == self.P:
+            del state["replicas"]
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self.__dict__.setdefault("replicas", self.P)
 
     @property
     def quorum(self) -> int:
@@ -183,10 +215,12 @@ def _ar(n: int, device: torch.device) -> torch.Tensor:
 def init_state(
     cfg: EngineConfig, key: torch.Tensor, device: torch.device
 ) -> EngineState:
+    """Every group at tick 0, its first config the slots
+    ``0..cfg.replicas-1`` (:func:`seed_voters`)."""
     G, P, L = cfg.G, cfg.P, cfg.L
     z = lambda *s: torch.zeros(s, dtype=I32, device=device)
     full = lambda v, *s: torch.full(s, v, dtype=I32, device=device)
-    return EngineState(
+    state = EngineState(
         tick_no=torch.zeros((), dtype=I32, device=device),
         term=z(G, P),
         voted_for=full(-1, G, P),
@@ -213,6 +247,26 @@ def init_state(
         joint=torch.zeros((G, P), dtype=torch.bool, device=device),
         cfg_epoch=z(G, P),
         cfg_idx=z(G, P),
+    )
+    if cfg.replicas < P:
+        state = seed_voters(state, range(cfg.replicas), P)
+    return state
+
+
+def seed_voters(state: EngineState, voters: Sequence[int], P: int) -> EngineState:
+    """``voters`` (slot indices) as every group's C_old and C_new, and the
+    other slots down: the bootstrap config of ``EngineDriver.seed_config``
+    and of ``EngineConfig.replicas``."""
+    mask = 0
+    for q in voters:
+        mask |= 1 << q
+    spare = torch.tensor(
+        [q not in voters for q in range(P)], device=state.alive.device
+    )
+    return state._replace(
+        voters_old=torch.full_like(state.voters_old, mask),
+        voters_new=torch.full_like(state.voters_new, mask),
+        alive=state.alive & ~spare,
     )
 
 

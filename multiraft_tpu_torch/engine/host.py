@@ -52,8 +52,10 @@ from .core import (
     Mailbox,
     empty_mailbox,
     init_state,
+    seed_voters,
     tick_impl,
 )
+from . import membership
 
 __all__ = [
     "EngineDriver",
@@ -575,56 +577,22 @@ class EngineDriver:
         )
         # In-flight messages to/from the old incarnation die — including
         # any held in the reorder delay queue.
-        self.inbox = self._mask_edges(self.inbox, g, p)
+        self.inbox = membership.drop_edges(self.inbox, *self._one_row(g, p))
         self._drop_delayed_of(g, p)
-
-    def _mask_edges(self, mb: Mailbox, g: int, p: int) -> Mailbox:
-        return mask_active(
-            mb, lambda _, a: _set(a, ((g, p), False), ((g, slice(None), p), False))
-        )
 
     def reset_replica(self, g: int, p: int) -> None:
         """Wipe slot (g, p) to a FRESH INCARNATION — the re-add path
         (a removed peer index reused for a new server), not the
         crash-restart path (:meth:`restart_replica`, where persistent
-        state survives).
-
-        Beyond the restarted-row reset, this clears the OTHER replicas'
-        per-column state about p: a stale ``votes[g, :, p]`` grant from
-        the old incarnation would otherwise count toward a quorum of
-        the new config at the old term, and a stale ``match_idx`` would
-        let a leader commit over entries the new incarnation never
-        acked.  ``alive`` is left False — :meth:`add_learner` raises it
-        once the config view is seeded."""
-        st = self.state
-        at, col = (g, p), (g, slice(None), p)
-        self.state = st._replace(
-            # Own row: blank server.
-            term=_set(st.term, (at, 0)),
-            voted_for=_set(st.voted_for, (at, -1)),
-            role=_set(st.role, (at, FOLLOWER)),
-            commit=_set(st.commit, (at, 0)),
-            applied=_set(st.applied, (at, 0)),
-            base=_set(st.base, (at, 0)),
-            base_term=_set(st.base_term, (at, 0)),
-            log_len=_set(st.log_len, (at, 0)),
-            log_term=_set(st.log_term, (at, 0)),
-            next_idx=_set(st.next_idx, (at, 1), (col, 1)),
-            hb_due=_set(st.hb_due, (at, 0)),
-            last_heard=_set(st.last_heard, (at, st.tick_no)),
-            elect_dl=_set(st.elect_dl, (at, st.tick_no + self.cfg.ELECT_MAX)),
-            # Cross-replica columns about p: no vote, prevote, match or
-            # ack of the OLD incarnation may leak into the new one's
-            # ledger.  The row write comes first, so [g, p, p] ends at
-            # the column's value.
-            votes=_set(st.votes, (at, False), (col, False)),
-            pre_votes=_set(st.pre_votes, (at, False), (col, False)),
-            match_idx=_set(st.match_idx, (at, 0), (col, 0)),
-            last_ack=_set(st.last_ack, (at, 0), (col, st.tick_no)),
-            alive=_set(st.alive, (at, False)),
+        state survives): :func:`.membership.reset_replica` on one row,
+        which also clears the other replicas' columns about p, and the
+        held messages of the old incarnation dropped.  ``alive`` is left
+        False — :meth:`add_learner` raises it once the config view is
+        seeded."""
+        rows, slots = self._one_row(g, p)
+        self.state, self.inbox = membership.reset_replica(
+            self.cfg, self.state, self.inbox, rows, slots, alive=False
         )
-        # In-flight traffic of the old incarnation dies with it.
-        self.inbox = self._mask_edges(self.inbox, g, p)
         self._drop_delayed_of(g, p)
 
     # -- membership change (joint consensus) -------------------------------
@@ -682,17 +650,11 @@ class EngineDriver:
                 f"add_learner: peer {p} is a voter of group {g}; remove "
                 f"it from the config before reseating the slot"
             )
-        self.reset_replica(g, p)
-        s = self.state
-        at, lat = (g, p), (g, lead)
-        self.state = s._replace(
-            voters_old=_set(s.voters_old, (at, s.voters_old[lat])),
-            voters_new=_set(s.voters_new, (at, s.voters_new[lat])),
-            joint=_set(s.joint, (at, s.joint[lat])),
-            cfg_epoch=_set(s.cfg_epoch, (at, s.cfg_epoch[lat])),
-            cfg_idx=_set(s.cfg_idx, (at, s.cfg_idx[lat])),
-            alive=_set(s.alive, (at, True)),
+        rows, slots = self._one_row(g, p)
+        self.state, self.inbox, _ = membership.seat_learners(
+            self.cfg, self.state, self.inbox, rows, slots
         )
+        self._drop_delayed_of(g, p)
 
     def learner_match(self, g: int, p: int) -> tuple:
         """(leader's match for p, leader's last index) — the catch-up
@@ -738,19 +700,16 @@ class EngineDriver:
             raise RuntimeError(
                 f"begin_joint: group {g} leader log has no headroom"
             )
-        idx = int(st["base"][g, lead] + st["log_len"][g, lead]) + 1
-        term = int(st["term"][g, lead])
-        s = self.state
-        lat = (g, lead)
-        self.state = s._replace(
-            log_term=_set(s.log_term, ((g, lead, idx % self.cfg.L), term)),
-            log_len=_set(s.log_len, (lat, int(st["log_len"][g, lead]) + 1)),
-            voters_new=_set(s.voters_new, (lat, mask)),
-            joint=_set(s.joint, (lat, True)),
-            cfg_epoch=_set(s.cfg_epoch, (lat, int(st["cfg_epoch"][g, lead]) + 1)),
-            cfg_idx=_set(s.cfg_idx, (lat, idx)),
-        )
-        return idx
+        rows, masks = self._one_row(g, mask)
+        self.state, _ = membership.begin_joint(self.cfg, self.state, rows, masks)
+        return int(st["base"][g, lead] + st["log_len"][g, lead]) + 1
+
+    def _one_row(self, g: int, value: int):
+        """Group ``g`` and one value as index tensors for
+        :mod:`.membership`, on the state's device."""
+        dev = self.state.term.device
+        return (torch.tensor([g], dtype=torch.int64, device=dev),
+                torch.tensor([value], dtype=torch.int64, device=dev))
 
     def seed_config(self, voters) -> None:
         """Bootstrap-time config: make ``voters`` (a peer index list)
@@ -764,16 +723,7 @@ class EngineDriver:
             raise ValueError(f"seed_config: bad voter set {voters}")
         if int(self.state.tick_no) != 0:
             raise RuntimeError("seed_config: cluster already ticked")
-        mask = 0
-        for q in voters:
-            mask |= 1 << q
-        spares = [q for q in range(self.cfg.P) if q not in voters]
-        st = self.state
-        self.state = st._replace(
-            voters_old=torch.full_like(st.voters_old, mask),
-            voters_new=torch.full_like(st.voters_new, mask),
-            alive=_set(st.alive, *[((slice(None), q), False) for q in spares]),
-        )
+        self.state = seed_voters(self.state, voters, self.cfg.P)
 
     def reconfiguring(self) -> np.ndarray:
         """Per-group bool: a membership change is in flight — the group

@@ -86,8 +86,8 @@ STATE_PLANES: Dict[str, str] = {
 }
 
 # Mailbox fields are all in-flight message state: volatile by
-# construction (restart/reset mask the edges via _mask_edges rather
-# than per-field), including the config piggyback lanes — the CONFIG
+# construction (restart/reset drop the edges via membership.drop_edges
+# rather than per-field), including the config piggyback lanes — the CONFIG
 # *planes* live in EngineState; the ar_cfg_* lanes merely carry them.
 MAILBOX_PLANES: Dict[str, str] = {
     "vr_active": VOLATILE,
