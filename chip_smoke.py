@@ -20,12 +20,20 @@ and prints no result line):
    kernel, its plain version and its memory/operation bound are timed,
    beside the bytes the kernel's design moves and the launch floor: an
    empty kernel launched by the same route with the same grid.
+   (b) The draw kernel (``csrc/threefry.cu``) through ``prng.randint``,
+   ``random_bits`` and ``uniform`` on the card equals the plain int64
+   draw on the card, exactly, one launch a draw, at each cell's jitter
+   shape (600,000 x 3 and 600,000 x 4 with span 10, 100,000 x 5 with span
+   30), at offset 0 and at an offset whose counters cross 2**32; kernel
+   and plain draw timed beside the bound of its integer operations and
+   stored bytes.
 3. Serving at full width (the main path, with the launch counters reset
    just before and read just after): an ``EngineDriver`` at the headline
    deployment elects one leader in every group, a ``BatchedKV`` answers
    a few hundred Put/Append/Get requests across many groups (every value
    held against a plain dict model of the same operations), and a fused
-   firehose batch runs; both kernels must have launched.
+   firehose batch runs; both kernels and the draw kernel must have
+   launched.
 4. Whole engine, kernels against plain versions: 200 ticks from one seed
    with the kernels on and off, all planes equal; and a small engine on
    the card against the same engine on the CPU under message drops.
@@ -202,8 +210,10 @@ and prints no result line):
    10% hot groups at the full ingest, 1% of the leaders killed a round):
    ms a tick and ticks/s, commits/s (hot and cold), commit latency
    p50/p99, the card's memory; 0 entries unaccounted, each kernel
-   launched once a tick, and at least 90% of the revived hot ex-leaders
-   rebased past the last index they held when they died (the snapshot
+   launched once a tick, the draw kernel more often than that (the
+   jitter a tick and the initial deadlines), and at least 90% of the
+   revived hot ex-leaders rebased past the last index they held when
+   they died (the snapshot
    fast-forward); each kernel against its plain version on the run's
    final state (timed, with its bound, grid and tail tile), the jitter
    draw at 100,000 x 5 against the CPU's, and the tick's roofline bound
@@ -245,8 +255,8 @@ and prints no result line):
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --only 10a 10b 10c 11a 11b 11c 12a 12b 13 14a 14b 14c
-14d 14e 14f`` runs the named sub-phases alone (phase 10's with the
+``python3 chip_smoke.py --only 2b 10a 10b 10c 11a 11b 11c 12a 12b 13 14a 14b
+14c 14d 14e 14f`` runs the named sub-phases alone (phase 10's with the
 controller's time in each transport and map verb; 14(e) in this process)
 and prints no contract lines.
 """
@@ -460,8 +470,25 @@ def tally_design_bytes(args) -> int:
     return G * P * (P + 5) + G * P
 
 
+# The kernels whose ptxas facts phase 1 checks; the draw kernel once for
+# each sampler (``threefry_kernel<S>``, S as ``prng.BITS``, ``RANDINT``,
+# ``UNIFORM``).
+PTXAS_KERNELS = ("quorum_commit_kernel", "vote_tally_kernel", "threefry_kernel<0>",
+                 "threefry_kernel<1>", "threefry_kernel<2>")
+
+
+def _kernel_name(mangled: str):
+    """The name in ``PTXAS_KERNELS`` of a mangled kernel name, or None."""
+    import re
+
+    m = re.search(r"threefry_kernelILi(\d+)EE", mangled)
+    if m:
+        return f"threefry_kernel<{m.group(1)}>"
+    return next((k for k in PTXAS_KERNELS[:2] if k in mangled), None)
+
+
 def ptxas_facts(text: str) -> dict:
-    """Registers, stack frame and spill bytes of the two kernels, from
+    """Registers, stack frame and spill bytes of each kernel, from
     ``nvcc -Xptxas -v`` output ("Function properties for <name>" comes
     before the lines that give them)."""
     import re
@@ -470,8 +497,7 @@ def ptxas_facts(text: str) -> dict:
     for line in text.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
-            name = next((k for k in ("quorum_commit_kernel", "vote_tally_kernel")
-                         if k in m.group(1)), None)
+            name = _kernel_name(m.group(1))
             continue
         if name is None:
             continue
@@ -496,7 +522,7 @@ def phase_build(kernels) -> None:
         if "ptxas" in line or "stack frame" in line:
             log(f"ptxas: {line.strip()}")
     facts = ptxas_facts(report)
-    for name in ("quorum_commit_kernel", "vote_tally_kernel"):
+    for name in PTXAS_KERNELS:
         f = facts.get(name, {})
         log(f"ptxas {name}: {json.dumps(f, sort_keys=True)}")
         if "stack" not in f:
@@ -579,6 +605,81 @@ def phase_kernels(kernels) -> dict:
                 f"host-paced {p_t['host'] * 1e3:.2f} us; bound "
                 f"{bound_ms * 1e3:.3f} us by {bound_by} ({nbytes} B); "
                 f"design_bytes {design_bytes} B")
+    return results
+
+
+# Phase 2(b)'s draws: each cell's [G, P] election jitter and ELECT range.
+DRAWS = (("r3", (600_000, 3), 10, 20), ("j3", (600_000, 4), 10, 20),
+         ("c5", (100_000, 5), 30, 60))
+# Integer operations of one threefry block: 2 key adds, 20 rounds of an
+# add, a rotate and an xor, 5 key injections of 2 adds, the output xor.
+THREEFRY_BLOCK_OPS = 2 + 20 * 3 + 5 * 2 + 1
+# An element's operations by sampler: randint's two blocks and its combine
+# (3 remainders, a multiply, 2 adds); uniform's shift, or and subtract.
+DRAW_OPS = {"random_bits": THREEFRY_BLOCK_OPS, "randint": 2 * THREEFRY_BLOCK_OPS + 6,
+            "uniform": THREEFRY_BLOCK_OPS + 3}
+
+
+def draw_bound(sampler: str, n: int, itemsize: int) -> tuple:
+    """(bound_ms, bound_by, bytes, ops) of one draw of ``n`` elements: its
+    integer operations at the scalar rate beside the bytes it stores (it
+    reads nothing)."""
+    nbytes, ops = n * itemsize, n * DRAW_OPS[sampler]
+    return _bound(nbytes, ops) + (nbytes, ops)
+
+
+def phase_draw(kernels) -> dict:
+    """Phase 2(b): the draw kernel through ``prng.random_bits``,
+    ``randint`` and ``uniform`` on the card, held exactly to the plain
+    int64 draw on the card (``prng.*_plain``) at each cell's jitter shape,
+    at offset 0 and at an offset whose counters cross 2**32, then timed
+    beside the plain draw and its bound."""
+    import torch
+
+    from multiraft_tpu_torch.utils import prng
+
+    dev = torch.device("cuda")
+    key = prng.fold_in(prng.fold_in(prng.PRNGKey(20), 1), 7)
+    results = {}
+    for tag, shape, lo, hi in DRAWS:
+        n = shape[0] * shape[1]
+        draws = (
+            ("randint", lambda o: prng.randint(key, shape, lo, hi, dev),
+             lambda o: prng.randint_plain(key, shape, lo, hi, dev)),
+            ("random_bits", lambda o: prng.random_bits(key, shape, dev, o),
+             lambda o: prng.random_bits_plain(key, shape, dev, o)),
+            ("uniform", lambda o: prng.uniform(key, shape, dev, o),
+             lambda o: prng.uniform_plain(key, shape, dev, o)),
+        )
+        for name, kern, plain in draws:
+            offsets = (0,) if name == "randint" else (0, 2**32 - n // 2)
+            for offset in offsets:
+                kernels.reset_launches()
+                got, want = kern(offset), plain(offset)
+                torch.cuda.synchronize()
+                if prng.KERNEL_LAUNCHES != 1 or max(kernels.LAUNCHES.values()) > 0:
+                    raise AssertionError(
+                        f"draw {name} {tag}: {prng.KERNEL_LAUNCHES} draw launches, "
+                        f"{kernels.LAUNCHES}")
+                if got.dtype != want.dtype or not torch.equal(got, want):
+                    raise AssertionError(f"draw {name} {tag} offset {offset}: kernel != "
+                                         f"plain draw")
+            k_t = cuda_ms(lambda: kern(0), 200)
+            p_t = cuda_ms(lambda: plain(0), 20)
+            bound_ms, bound_by, nbytes, ops = draw_bound(name, n, got.element_size())
+            results[(name, tag)] = dict(
+                max_abs_err=0, ms=k_t["cold"], warm_ms=k_t["warm"], host_ms=k_t["host"],
+                plain_ms=p_t["cold"], plain_warm_ms=p_t["warm"], plain_host_ms=p_t["host"],
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=ops,
+                shape=list(shape), span=hi - lo if name == "randint" else None,
+            )
+            log(f"draw {name} {tag} {shape[0]} x {shape[1]}"
+                f"{f', span {hi - lo}' if name == 'randint' else ''}: equal to the plain "
+                f"draw (offsets {', '.join(map(str, offsets))}), one launch a draw; device cold "
+                f"{k_t['cold'] * 1e3:.2f} us, warm {k_t['warm'] * 1e3:.2f} us, host-paced "
+                f"{k_t['host'] * 1e3:.2f} us; plain cold {p_t['cold'] * 1e3:.2f} us, warm "
+                f"{p_t['warm'] * 1e3:.2f} us, host-paced {p_t['host'] * 1e3:.2f} us; bound "
+                f"{bound_ms * 1e3:.3f} us by {bound_by} ({ops} operations, {nbytes} B)")
     return results
 
 
@@ -4477,6 +4578,7 @@ def config5_on_card(card: str, kernels, headline_tick_ms=None) -> dict:
     res = run_config5(True, "cuda", detail=detail, **CONFIG5_RUN)
     run_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    draw_launches = prng.KERNEL_LAUNCHES
     used1 = _gpu_mib(-1)[1]
     cfg, st = detail["cfg"], detail["state"]
     G, P = cfg.G, cfg.P
@@ -4489,7 +4591,7 @@ def config5_on_card(card: str, kernels, headline_tick_ms=None) -> dict:
                ticks_per_s=1e3 / mean_ms, commits=detail["commits"],
                hot_commits=detail["hot_commits"], p50_ticks=detail["lat"]["p50_ticks"],
                p99_ticks=detail["lat"]["p99_ticks"], revived_hot=len(revived),
-               revived_hot_rebased=rebased, launches=launches,
+               revived_hot_rebased=rebased, launches=launches, draw_launches=draw_launches,
                peak_allocated_mib=detail["peak_bytes"] / 2**20,
                card_used_mib={"before": used0, "after": used1})
     log(f"13: config #5 G={G} P={P} L={cfg.L} E={cfg.E} INGEST={cfg.INGEST}, kernels "
@@ -4521,6 +4623,12 @@ def config5_on_card(card: str, kernels, headline_tick_ms=None) -> dict:
         if n != detail["ticks"]:
             raise AssertionError(f"13: kernel {name} launched {n} times in "
                                  f"{detail['ticks']} ticks")
+    # The draw kernel: each tick's jitter, and the initial deadlines.
+    if draw_launches <= detail["ticks"]:
+        raise AssertionError(f"13: the draw kernel launched {draw_launches} times in "
+                             f"{detail['ticks']} ticks")
+    log(f"13: launches {launches}, draw kernel {draw_launches} in {detail['ticks']} "
+        f"ticks [{card}]")
 
     # The tick's bound: its bytes (the ring read once to three times)
     # over the card's memory rate.
@@ -4845,14 +4953,19 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--only"]:
         tour = ("12a", "12b")
-        names = sys.argv[2:] or ["10a", "10b", "10c", "11a", "11b", "11c", *tour, "13",
-                                 *RIGS_PHASES]
+        names = sys.argv[2:] or ["2b", "10a", "10b", "10c", "11a", "11b", "11c", *tour,
+                                 "13", *RIGS_PHASES]
         unknown = [n for n in names if n not in MESH_PHASES and n not in RIGS_PHASES
-                   and n not in ("10a", "10b", "10c", "13") + tour]
+                   and n not in ("2b", "10a", "10b", "10c", "13") + tour]
         if unknown:
             print(f"chip_smoke: unknown sub-phases {unknown}", file=sys.stderr)
             return 2
         card = card_line()
+        if "2b" in names:
+            phase_build(kernels)
+            draws = phase_draw(kernels)
+            log(f"draws: {json.dumps({f'{s}.{t}': v for (s, t), v in draws.items()})} "
+                f"[{card}]")
         if any(n.startswith("10") for n in names):
             placed_alone(card, [n for n in names if n.startswith("10")])
         mesh_names = [n for n in names if n in MESH_PHASES]
@@ -4877,12 +4990,16 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
+    from multiraft_tpu_torch.utils import prng
+
     phase_build(kernels)
     kres = phase_kernels(kernels)
+    dres = phase_draw(kernels)
 
     kernels.reset_launches()
     fh = phase_serving(card)
     launches = dict(kernels.LAUNCHES)
+    launches["threefry"] = prng.KERNEL_LAUNCHES
     log(f"main path launches: {launches}")
     for name, n in launches.items():
         if n <= 0:
@@ -4986,6 +5103,30 @@ def main() -> int:
             # reference's serve; each sub-phase's count in its process.
             "rigs_launches": {k: v["launches"][name] for k, v in rigs.items()},
         })
+    # The draw kernel replaces no TPU kernel (the JAX package draws with
+    # jax.random); its headline figures are the r3 jitter's randint.
+    d = dres[("randint", "r3")]
+    line.append({
+        "name": "threefry",
+        "route": "cuda",
+        "source": "multiraft_tpu_torch/engine/csrc/threefry.cu",
+        "replaces": None,
+        "launches": launches["threefry"],
+        "max_abs_err": max(v["max_abs_err"] for v in dres.values()),
+        "ms": d["ms"],
+        "plain_ms": d["plain_ms"],
+        "bound_ms": d["bound_ms"],
+        "bound_by": d["bound_by"],
+        "library_ms": None,
+        "shape": d["shape"],
+        "warm_ms": d["warm_ms"],
+        "host_ms": d["host_ms"],
+        "draws": {f"{s}.{t}": {k: v[k] for k in (
+            "shape", "span", "ms", "warm_ms", "host_ms", "plain_ms", "plain_warm_ms",
+            "bound_ms", "bound_by", "ops", "bytes",
+        )} for (s, t), v in dres.items()},
+        "config5_run": {"launches": c5_run["draw_launches"]},
+    })
     log(f"firehose: {json.dumps(fh)}")
     log(f"operations: {json.dumps(ops)}")
     log(f"sharded engine: {json.dumps(sharded)} [{card}]")

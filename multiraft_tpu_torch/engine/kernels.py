@@ -1,5 +1,7 @@
 """The engine's two leader-side reductions: hand-written CUDA kernels for
-Hopper, their plain PyTorch versions, and the launch counters.
+Hopper, their plain PyTorch versions, and the launch counters; and the
+launch of the threefry draw kernel that ``utils/prng.py`` sends a CUDA
+draw to (:func:`threefry`, counted in ``prng.KERNEL_LAUNCHES``).
 
 They replace the reference's Pallas TPU kernels
 (``multiraft_tpu/engine/pallas_ops.py``):
@@ -15,7 +17,8 @@ version; a CUDA tensor launches the kernel (built from ``csrc/`` with
 ``nvcc`` at first use, loaded with ``ctypes``) or raises.  Nothing falls
 back.  ``LAUNCHES`` counts kernel launches, and only those.  While
 ``torch.profiler`` records, each call runs inside an
-``mrt.kernel.<name>`` range.
+``mrt.kernel.<name>`` range.  Each launch is made with its tensors'
+card as the current device, on that card's current stream.
 
 Both kernels cut the row-major ``[G, P, ...]`` planes into tiles of
 consecutive (g, p) rows, stage each tile into shared memory with bulk
@@ -39,16 +42,16 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..utils import trace
+from ..utils import prng, trace
 
 __all__ = [
-    "LAUNCHES", "MAX_P", "SOURCES", "TilePlan", "build_library",
+    "DRAW_DTYPES", "LAUNCHES", "MAX_P", "SOURCES", "TilePlan", "build_library",
     "empty_launch", "ptxas_report", "quorum_commit", "quorum_commit_plain",
-    "reset_launches", "tile_plan", "vote_tally", "vote_tally_plain",
+    "reset_launches", "threefry", "tile_plan", "vote_tally", "vote_tally_plain",
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "raft_kernels.cu",)
+SOURCES = (CSRC / "raft_kernels.cu", CSRC / "threefry.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -107,14 +110,19 @@ def tile_plan(rows: int, P: int, kernel: str, sms: int = H100_SMS) -> TilePlan:
 
 
 LAUNCHES: Dict[str, int] = {"quorum_commit": 0, "vote_tally": 0}
+# The output dtype of each of the draw kernel's samplers.
+DRAW_DTYPES = {prng.BITS: torch.int64, prng.RANDINT: torch.int32,
+               prng.UNIFORM: torch.float32}
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 
 
 def reset_launches() -> None:
+    """Zero ``LAUNCHES`` and the draw kernel's ``prng.KERNEL_LAUNCHES``."""
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    prng.KERNEL_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -218,6 +226,11 @@ def _library() -> ctypes.CDLL:
             lib.mrt_vote_tally.restype = ci
             lib.mrt_empty.argtypes = [ci] * 3 + [vp]
             lib.mrt_empty.restype = ci
+            u32 = ctypes.c_uint32
+            lib.mrt_threefry.argtypes = (
+                [ci, vp] + [u32] * 6 + [ci, u32, u32, ctypes.c_int64, vp, ci, vp]
+            )
+            lib.mrt_threefry.restype = ci
             _lib = lib
     return _lib
 
@@ -261,12 +274,23 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _on(t: torch.Tensor) -> torch.cuda.device:
+    """``t``'s card as the current device for a launch: the C entry
+    points launch on the runtime's current device, which PyTorch leaves
+    at the first card between its own ops."""
+    return torch.cuda.device(t.device)
+
+
+@lru_cache(maxsize=16)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 @lru_cache(maxsize=64)
 def _launch_plan(rows: int, P: int, kernel: str,
                  device: torch.device) -> Tuple[int, int, int]:
     """(tile, smem bytes, grid) of :func:`tile_plan` on ``device``."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    plan = tile_plan(rows, P, kernel, sms=sms)
+    plan = tile_plan(rows, P, kernel, sms=_sms(device))
     return plan.tile, plan.smem_bytes, plan.grid
 
 
@@ -301,12 +325,13 @@ def quorum_commit(
         _check("log_term", log_term, torch.int32, (G, P, L))
         _check_staged("is_leader", is_leader, torch.bool, (G, P))
         out = torch.empty((G, P), dtype=torch.int32, device=eff_match.device)
-        rc = _library().mrt_quorum_commit(
-            eff_match.data_ptr(), term.data_ptr(), commit.data_ptr(),
-            base.data_ptr(), base_term.data_ptr(), log_term.data_ptr(),
-            is_leader.data_ptr(), out.data_ptr(), G, P, L, int(quorum),
-            *_launch_plan(G * P, P, "quorum_commit", out.device), _stream(out),
-        )
+        with _on(out):
+            rc = _library().mrt_quorum_commit(
+                eff_match.data_ptr(), term.data_ptr(), commit.data_ptr(),
+                base.data_ptr(), base_term.data_ptr(), log_term.data_ptr(),
+                is_leader.data_ptr(), out.data_ptr(), G, P, L, int(quorum),
+                *_launch_plan(G * P, P, "quorum_commit", out.device), _stream(out),
+            )
         _raise_on(rc, "quorum_commit")
         LAUNCHES["quorum_commit"] += 1
         return out
@@ -327,13 +352,57 @@ def vote_tally(
         _check_staged("role", role, torch.int32, (G, P))
         _check_staged("alive", alive, torch.bool, (G, P))
         out = torch.empty((G, P), dtype=torch.bool, device=votes.device)
-        rc = _library().mrt_vote_tally(
-            votes.data_ptr(), role.data_ptr(), alive.data_ptr(), out.data_ptr(),
-            G, P, int(quorum), *_launch_plan(G * P, P, "vote_tally", out.device),
-            _stream(out),
-        )
+        with _on(out):
+            rc = _library().mrt_vote_tally(
+                votes.data_ptr(), role.data_ptr(), alive.data_ptr(), out.data_ptr(),
+                G, P, int(quorum), *_launch_plan(G * P, P, "vote_tally", out.device),
+                _stream(out),
+            )
         _raise_on(rc, "vote_tally")
         LAUNCHES["vote_tally"] += 1
+        return out
+
+
+def _check_draw(out: torch.Tensor, key: Optional[torch.Tensor],
+                dtype: torch.dtype) -> None:
+    """What the draw kernel takes: ``out`` of ``dtype``, contiguous, on a
+    CUDA device; a key on the card as two contiguous uint32 words on the
+    same device.  The device is checked last, so a CPU tensor shows the
+    other refusals too."""
+    if out.dtype != dtype:
+        raise ValueError(f"threefry: expected a {dtype} output, got {out.dtype}")
+    if not out.is_contiguous():
+        raise ValueError("threefry: expected a contiguous output")
+    if out.device.type != "cuda":
+        raise ValueError(f"threefry: expected a CUDA output, got {out.device}")
+    if key is not None and (key.dtype != torch.uint32 or key.shape != (2,)
+                            or not key.is_contiguous() or key.device != out.device):
+        raise ValueError(
+            f"threefry: expected a contiguous uint32[2] key on {out.device}, got "
+            f"{key.dtype}{list(key.shape)} on {key.device}"
+        )
+
+
+def threefry(out: torch.Tensor, args: prng.DrawArgs,
+             key: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fill ``out`` with the draw ``args`` describes (``prng.draw_args``),
+    by the CUDA kernel of ``csrc/threefry.cu`` on the current stream:
+    under the key words of ``args``, or under ``key`` where it lies on the
+    card (the kernel then reads it, and splits it itself).  Each launch
+    adds one to ``prng.KERNEL_LAUNCHES``; an empty ``out`` launches
+    nothing."""
+    with trace.span("mrt.kernel.threefry"):
+        _check_draw(out, key, DRAW_DTYPES[args.sampler])
+        if out.numel() == 0:
+            return out
+        with _on(out):
+            rc = _library().mrt_threefry(
+                args.sampler, None if key is None else key.data_ptr(), *args.words,
+                args.span, args.mult, args.minval, args.offset_hi, args.offset_lo,
+                out.numel(), out.data_ptr(), _sms(out.device), _stream(out),
+            )
+        _raise_on(rc, "threefry")
+        prng.KERNEL_LAUNCHES += 1
         return out
 
 
@@ -342,8 +411,9 @@ def empty_launch(plan: TilePlan, device: torch.device) -> None:
     memory on ``device``'s current stream, by the route the two kernels
     take: the least time any of their launches can show.  It is not one
     of the engine's kernels and is not counted in ``LAUNCHES``."""
-    rc = _library().mrt_empty(
-        plan.grid, plan.tile, plan.smem_bytes,
-        torch.cuda.current_stream(device).cuda_stream,
-    )
+    with torch.cuda.device(device):
+        rc = _library().mrt_empty(
+            plan.grid, plan.tile, plan.smem_bytes,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
     _raise_on(rc, "empty")

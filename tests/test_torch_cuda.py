@@ -14,6 +14,7 @@ from multiraft_tpu_torch import convert
 from multiraft_tpu_torch.engine import kernels
 from multiraft_tpu_torch.engine.core import EngineConfig
 from multiraft_tpu_torch.engine.host import EngineDriver
+from multiraft_tpu_torch.utils import prng
 from torch_parity import same_delayed
 
 pytestmark = pytest.mark.cuda
@@ -105,6 +106,164 @@ def test_wrappers_refuse_unaligned_planes(card):
     alive = torch.ones(G * P + 1, dtype=torch.bool, device=card)[1:].view(G, P)
     with pytest.raises(ValueError, match="aligned"):
         kernels.vote_tally(votes, role.clone(), alive, 2)
+
+
+# The draw kernel (csrc/threefry.cu) against the plain draw on the CPU: the
+# cells' jitter shapes (r3, j3, c5), ragged sizes around the 4-element
+# step, and the SEEDS of tests/test_torch_prng.py (not imported: it
+# imports JAX).
+DRAW_SHAPES = [(600_000, 3), (600_000, 4), (100_000, 5), (1,), (31,), (33,),
+               (1025,), (41, 5, 5)]
+DRAW_SEEDS = (0, 1, 12345, 2**31 - 1, -1)
+# Span 10 and 30 (the cells' ELECT ranges), span 1 (maxval <= minval),
+# spans near 2**31 and at 2**32 - 1, a negative minval.
+DRAW_BOUNDS = ((10, 20), (30, 60), (5, 5), (9, 2), (0, 2**31 - 1),
+               (1, 2**31 - 1), (-(2**31), 2**31 - 1), (-5, 17))
+# Offsets whose flat counters stay under 2**32, cross it, and lie past it.
+DRAW_OFFSETS = (0, 12_345, 2**32 - 1_000, 5 * 2**32 + 3)
+
+
+@pytest.mark.parametrize("shape", DRAW_SHAPES, ids=str)
+@pytest.mark.parametrize("seed", DRAW_SEEDS)
+def test_draw_kernel_equals_the_plain_draw(card, shape, seed):
+    key = prng.fold_in(prng.PRNGKey(seed), 7)
+    big = int(np.prod(shape)) > 100_000
+    bounds = DRAW_BOUNDS[:2] if big else DRAW_BOUNDS
+    offsets = DRAW_OFFSETS[::2] if big else DRAW_OFFSETS
+    kernels.reset_launches()
+    for lo, hi in bounds:
+        got = prng.randint(key, shape, lo, hi, card)
+        assert got.dtype == torch.int32 and got.shape == shape
+        assert torch.equal(got.cpu(), prng.randint(key, shape, lo, hi, "cpu")), (lo, hi)
+    for offset in offsets:
+        for draw in (prng.random_bits, prng.uniform):
+            got = draw(key, shape, card, offset)
+            want = draw(key, shape, "cpu", offset)
+            assert got.dtype == want.dtype and torch.equal(got.cpu(), want), offset
+    torch.cuda.synchronize()
+    assert prng.KERNEL_LAUNCHES == len(bounds) + 2 * len(offsets)
+    assert kernels.LAUNCHES == {"quorum_commit": 0, "vote_tally": 0}
+
+
+def test_draw_kernel_reads_a_key_on_the_card(card):
+    """A key on the card gives the draws of the same key on the host,
+    with no synchronise (the kernel reads and splits the key itself),
+    one launch a draw."""
+    for seed in DRAW_SEEDS:
+        host = prng.fold_in(prng.PRNGKey(seed), 0xFA)
+        on_card = prng.fold_in(prng.PRNGKey(seed, card), 0xFA)
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = [prng.randint(on_card, (1025, 3), 30, 60),
+                   prng.uniform(on_card, (41, 5, 5), offset=2**32 - 7),
+                   prng.random_bits(on_card, (33,), card, 5)]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        want = [prng.randint(host, (1025, 3), 30, 60, card),
+                prng.uniform(host, (41, 5, 5), card, 2**32 - 7),
+                prng.random_bits(host, (33,), card, 5)]
+        assert prng.KERNEL_LAUNCHES == 6
+        for a, b in zip(got, want):
+            assert a.device == b.device and torch.equal(a, b)
+    out = torch.empty(8, dtype=torch.int32, device=card)
+    args = prng.draw_args(prng.RANDINT, on_card, minval=0, maxval=9)
+    with pytest.raises(ValueError, match="uint32"):
+        kernels.threefry(out, args, on_card.to(torch.int64))
+    with pytest.raises(ValueError, match="uint32"):
+        kernels.threefry(out, args, on_card.cpu())
+
+
+def test_the_engine_on_the_card_draws_through_the_kernel(card):
+    """Every tick's jitter and the initial deadlines are one launch each;
+    the two reductions' counters do not count them."""
+    cfg = EngineConfig(G=16, P=3, L=32, E=4, INGEST=4)
+    kernels.reset_launches()
+    d = EngineDriver(cfg, seed=6, device=card)
+    d.step(5)
+    torch.cuda.synchronize()
+    assert prng.KERNEL_LAUNCHES >= 6
+    assert kernels.LAUNCHES == {"quorum_commit": 0, "vote_tally": 0}
+
+
+def test_draw_kernel_counts_its_launches(card):
+    """``kernels.threefry`` counts each launch, called directly too; an
+    empty draw launches nothing and counts nothing."""
+    key = prng.PRNGKey(3)
+    kernels.reset_launches()
+    out = torch.empty(1025, dtype=torch.int32, device=card)
+    kernels.threefry(out, prng.draw_args(prng.RANDINT, key, minval=10, maxval=20))
+    assert prng.KERNEL_LAUNCHES == 1
+    assert torch.equal(out.cpu(), prng.randint(key, (1025,), 10, 20))
+    assert prng.randint(key, (0, 3), 10, 20, card).shape == (0, 3)
+    assert prng.uniform(key, (0,), card).numel() == 0
+    assert prng.KERNEL_LAUNCHES == 1
+
+
+@pytest.fixture
+def cards():
+    """The visible cards, where there are two or more."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        pytest.skip(f"needs two CUDA devices, {n} visible")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def test_kernels_on_a_second_card_equal_the_cpu(cards):
+    """The draw and the two reductions launch on the card their tensors
+    lie on, whichever card is current, and leave the current card as it
+    was."""
+    dev = cards[1]
+    assert torch.cuda.current_device() == 0
+    for seed in DRAW_SEEDS:
+        host = prng.fold_in(prng.PRNGKey(seed), 7)
+        on_card = prng.fold_in(prng.PRNGKey(seed, dev), 7)
+        kernels.reset_launches()
+        for key in (host, on_card):
+            got = prng.randint(key, (100_000, 5), 30, 60, dev)
+            assert got.device == dev
+            assert torch.equal(got.cpu(), prng.randint(host, (100_000, 5), 30, 60))
+            for draw in (prng.random_bits, prng.uniform):
+                got = draw(key, (41, 5, 5), dev, 2**32 - 7)
+                assert torch.equal(got.cpu(), draw(host, (41, 5, 5), "cpu", 2**32 - 7))
+        assert prng.KERNEL_LAUNCHES == 6
+    rng = np.random.default_rng(4)
+    c_args = [torch.from_numpy(a) for a in _commit_inputs(rng, 300, 3, 32)]
+    t_args = (torch.from_numpy(rng.random((300, 3, 3)) < 0.5),
+              torch.from_numpy(rng.integers(0, 3, (300, 3)).astype(np.int32)),
+              torch.from_numpy(rng.random((300, 3)) < 0.9))
+    got = kernels.quorum_commit(*[a.to(dev) for a in c_args], 2)
+    assert got.device == dev and torch.equal(got.cpu(), kernels.quorum_commit_plain(*c_args, 2))
+    got = kernels.vote_tally(*[a.to(dev) for a in t_args], 2)
+    assert got.device == dev and torch.equal(got.cpu(), kernels.vote_tally_plain(*t_args, 2))
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.current_device() == 0
+
+
+def test_a_mesh_over_the_cards_equals_the_mesh_on_the_cpu(cards):
+    """``make_mesh`` over every visible card (``--mesh-devices``), one
+    shard a card, each shard's jitter, deadlines and drops drawn by the
+    kernel on its own card: tick for tick the same mesh on the CPU."""
+    from multiraft_tpu_torch.distributed.engine_wire import make_mesh
+
+    n = len(cards)
+    cfg = EngineConfig(G=16 * n, P=3, L=32, E=4, INGEST=4)
+    worlds = []
+    kernels.reset_launches()
+    for dev in ("cuda", "cpu"):
+        d = EngineDriver(cfg, seed=9, mesh=make_mesh(n, dev))
+        d.start_bulk(np.full(cfg.G, 200, np.int64))
+        d.step(40)
+        d.drop_prob = 0.1
+        d.step(40)
+        worlds.append((d.np_state(), convert.mailbox_to_numpy(d.inbox), d.commits_total))
+    assert prng.KERNEL_LAUNCHES >= 80 * n
+    (sa, ia, ca), (sb, ib, cb) = worlds
+    assert ca == cb > 0
+    for x, y in ((sa, sb), (ia, ib)):
+        for k in x:
+            assert np.array_equal(x[k], y[k]), k
 
 
 def test_engine_on_the_card_equals_the_engine_on_the_cpu(card):
